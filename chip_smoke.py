@@ -1,0 +1,425 @@
+#!/usr/bin/env python3
+"""Build and drive the PyTorch port (``ray_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. The card: name, count, ``nvidia-smi`` name and power limit; TF32 off.
+2. Build every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (one ``nvcc``
+   per source, in parallel).
+3. K1 (flash-attention forward) against its plain PyTorch version at the
+   flagship shape, one non-causal and one ragged GQA shape: o within 2e-2
+   (bf16 output, f32 accumulation), lse within 1e-3 (f32).  Times of the
+   kernel, the plain version and ``scaled_dot_product_attention``.
+4. K4 (paged decode attention) against its plain version: exact at the
+   serving shape (f32, h=1, d=32, block 8, window=1); at a general bf16
+   shape (B=8, h=6, d=128, block 16, ctx 1-1024, windows 0 and 64) each
+   element within 1e-3 + 1e-2 * |plain| (one bf16 ulp passes, a lost
+   page does not).  Times from the profiler's kernel records, the bound
+   from the bytes and flop these inputs need.
+5. Main path 1: the flagship Llama forward through
+   ``ray_tpu_torch.entry.entry()`` at full width (12 layers, 4 x 512,
+   bf16): finite logits, K1 launched 12 times per forward, the loss of the
+   K1 path within 2e-2 of the plain-attention path; ms per forward,
+   tokens/s, peak memory.
+6. Main path 2: 16 requests from threads through the paged decoder under
+   the continuous batcher (paged_kv, prefix caching, speculative_k=3):
+   every chain bitwise ``reference_decode``, K4 launched, prefix hits.
+
+Launch counts are set to 0 just before each main path and read just after
+it.  Prints the kernels line, then as its last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
+there is no card or the port is not beside this script.
+"""
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+BF16_FLOPS = 989e12           # dense tensor-core peak, bf16
+F32_FLOPS = 67e12             # f32 outside the tensor cores
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, iters):
+    """Mean ms per call by CUDA events over ``iters`` calls after 3 warm-up
+    calls (warm L2)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _profile(torch, run, reps):
+    """Run ``run`` ``reps`` times under torch.profiler: ({CUDA kernel or
+    copy name: device us per run}, host wall us per run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    busy = {e.key: e.self_device_time_total / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return busy, wall_us
+
+
+def device_ms(torch, run, reps, kernel=None):
+    """Device time per call: the profiler's kernel times (only kernels
+    whose name holds ``kernel`` when given).  Raises when two profiled
+    runs record no such kernel: a host-clock time is no device time."""
+    for _ in range(2):
+        busy, _ = _profile(torch, run, reps)
+        us = sum(t for k, t in busy.items() if kernel is None or kernel in k)
+        if us:
+            return us / 1e3
+    raise RuntimeError(f"the profiler recorded no device time for "
+                       f"{kernel or 'the call'}")
+
+
+def bound(nbytes, flops, peak_flops):
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def k1_phase(torch, dev):
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops.layers import repeat_kv_heads
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    result = None
+    for b, s, h, h_kv, causal in ((4, 512, 6, 6, True),
+                                  (2, 256, 6, 6, False),
+                                  (2, 500, 6, 2, True)):
+        q, k, v = (torch.randn((b, s, hh, 128), generator=gen, device=dev)
+                   .to(torch.bfloat16) for hh in (h, h_kv, h_kv))
+        o, lse = attention.flash_attention_fwd(q, k, v, causal=causal)
+        qs = attention._prescale(q, 128 ** -0.5)
+        k2, v2 = repeat_kv_heads(q, k, v)
+        o_p, lse_p = attention._flash_fwd_plain(qs, k2, v2, causal)
+        torch.cuda.synchronize()
+        err_o = float((o.float() - o_p.float()).abs().max())
+        err_l = float((lse - lse_p).abs().max())
+        log(f"K1 b={b} s={s} h={h}->{h_kv} causal={causal}: "
+            f"o max_abs_err={err_o} (<=2e-2) lse max_abs_err={err_l} "
+            f"(<=1e-3)")
+        check(err_o <= 2e-2 and err_l <= 1e-3, "K1 disagrees with plain")
+        if result is None:   # the flagship shape: time it
+            def run():
+                return attention.flash_attention_fwd(q, k, v, causal=causal)
+
+            ms = device_ms(torch, run, 20, kernel="flash_fwd_kernel")
+            call_ms = cuda_ms(run, 50)
+            plain_ms = device_ms(torch, lambda: attention._flash_fwd_plain(
+                qs, k2, v2, causal), 3)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_ms = device_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                   is_causal=causal), 20)
+            nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
+            pairs = s * (s + 1) // 2 if causal else s * s
+            flops = 4 * 128 * pairs * b * h
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            log(f"K1 flagship shape (device time per call): kernel {ms} ms, "
+                f"plain {plain_ms} ms, sdpa {lib_ms} ms, bound {b_ms} ms "
+                f"({b_by}: {nbytes} B, {flops} flop); wrapper call "
+                f"{call_ms} ms")
+            result = {"name": "K1_flash_fwd", "route": "cuda",
+                      "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "replaces": "ray_tpu/ops/attention.py:100",
+                      "max_abs_err": err_o, "lse_max_abs_err": err_l,
+                      "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+    return result
+
+
+def _paged_inputs(torch, dev, seed, B, h, d, bs, max_ctx, dtype):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    width = -(-max_ctx // bs)
+    nb = B * width
+    q = torch.from_numpy(rng.normal(size=(B, h, d))).to(dev, dtype)
+    kc = torch.from_numpy(rng.normal(size=(nb, bs, h, d))).to(dev, dtype)
+    vc = torch.from_numpy(rng.normal(size=(nb, bs, h, d))).to(dev, dtype)
+    bt = torch.from_numpy(rng.permutation(nb).reshape(B, width)
+                          .astype(np.int32)).to(dev)
+    cl = rng.integers(1, max_ctx + 1, size=B).astype(np.int32)
+    return q, kc, vc, bt, torch.from_numpy(cl).to(dev), cl
+
+
+def k4_work(q, cl_np, window, bs):
+    """Bytes K4 must move and the flop it does on these inputs: q and o
+    once, and per sequence the k and v rows of ``[max(ctx - window, 0),
+    ctx)``, the block-table entries of the pages that hold them, and its
+    context length."""
+    B, h, d = q.shape
+    rows = pages = 0
+    for c in (int(c) for c in cl_np):
+        lo = max(c - window, 0) if window else 0
+        rows += c - lo
+        pages += (c - 1) // bs - lo // bs + 1
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * rows * h * d * q.element_size() + 4 * pages + 4 * B)
+    return nbytes, 4 * h * d * rows
+
+
+def k4_phase(torch, dev):
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops.paged_attention import (
+        _paged_attention_plain, paged_attention)
+
+    def plain(q, kc, vc, bt, cl, window):
+        qs = (q * (q.shape[-1] ** -0.5 * attention._LOG2E)).to(q.dtype)
+        return _paged_attention_plain(qs, kc, vc, bt, cl, window)
+
+    # The serving shape (what the decoder's _read_last launches).
+    q, kc, vc, bt, cl, cl_np = _paged_inputs(torch, dev, 0, 8, 1, 32, 8, 40,
+                                             torch.float32)
+    out = paged_attention(q, kc, vc, bt, cl, window=1)
+    ref = plain(q, kc, vc, bt, cl, 1)
+    torch.cuda.synchronize()
+    exact = torch.equal(out, ref)
+    err = float((out - ref).abs().max())
+    log(f"K4 serving shape (f32, B=8, h=1, d=32, bs=8, window=1): "
+        f"exact={exact} max_abs_err={err}")
+    check(exact, "K4 is not exact at window=1")
+    def run():
+        return paged_attention(q, kc, vc, bt, cl, window=1)
+
+    ms = device_ms(torch, run, 50, kernel="paged_decode_kernel")
+    call_ms = cuda_ms(run, 200)
+    plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 1), 20)
+    nbytes, flops = k4_work(q, cl_np, 1, 8)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    log(f"K4 serving shape (device time per call): kernel {ms} ms, plain "
+        f"{plain_ms} ms, bound {b_ms} ms ({b_by}: {nbytes} B, {flops} "
+        f"flop); wrapper call {call_ms} ms")
+    result = {"name": "K4_paged_decode", "route": "cuda",
+              "source": "ray_tpu_torch/ops/csrc/paged_decode.cu",
+              "replaces": "ray_tpu/ops/paged_attention.py:85",
+              "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": None}
+    # A general shape: bf16, long ragged contexts, two windows.  Each
+    # element within 1e-3 + 1e-2 * |plain|: a one-ulp bf16 rounding
+    # difference passes, a dropped or repeated page of 16 rows does not.
+    q, kc, vc, bt, cl, cl_np = _paged_inputs(torch, dev, 1, 8, 6, 128, 16,
+                                             1024, torch.bfloat16)
+    for window in (0, 64):
+        out = paged_attention(q, kc, vc, bt, cl, window=window)
+        ref = plain(q, kc, vc, bt, cl, window).float()
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        n_out = int((diff > 1e-3 + 1e-2 * ref.abs()).sum())
+        ms = device_ms(torch, lambda: paged_attention(
+            q, kc, vc, bt, cl, window=window), 20, kernel="paged_decode")
+        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl,
+                                                  window), 5)
+        nbytes, flops = k4_work(q, cl_np, window, 16)
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        log(f"K4 general shape (bf16, B=8, h=6, d=128, bs=16, ctx "
+            f"{int(cl_np.min())}-{int(cl_np.max())}, window={window}): "
+            f"max_abs_err={err}, {n_out} elements outside 1e-3 + "
+            f"1e-2*|plain|; kernel {ms} ms, plain {plain_ms} ms, bound "
+            f"{b_ms} ms ({b_by}: {nbytes} B, {flops} flop)")
+        check(n_out == 0, f"K4 disagrees with plain at window={window}")
+    return result
+
+
+def llama_phase(torch):
+    from ray_tpu_torch.entry import _flagship_cfg, entry
+    from ray_tpu_torch.models import forward, loss_fn
+    from ray_tpu_torch.ops import _build
+
+    fn, (params, tokens) = entry()
+    cfg = _flagship_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()                       # main path 1 starts
+    with torch.no_grad():
+        logits = fn(params, tokens)
+        torch.cuda.synchronize()
+        first = _build.launches["flash_fwd"]
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(params, tokens)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+    launches = _build.launches["flash_fwd"]       # main path 1 ends
+    peak = torch.cuda.max_memory_allocated()
+    check(first == cfg.num_layers, f"K1 launched {first} times in one "
+          f"forward, expected {cfg.num_layers}")
+    check(launches == cfg.num_layers * (n + 1), "K1 launches per forward")
+    check(tuple(logits.shape) == (4, 512, cfg.vocab_size)
+          and logits.dtype == torch.float32, "logits shape")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    with torch.no_grad():
+        loss_k1, _ = loss_fn(params, {"tokens": tokens}, cfg)
+        loss_ref, _ = loss_fn(params, {"tokens": tokens},
+                              dataclasses.replace(cfg,
+                                                  attn_impl="reference"))
+    d_loss = abs(float(loss_k1) - float(loss_ref))
+    log(f"flagship forward (12 layers, 4 x 512, bf16): {dt * 1e3} ms per "
+        f"forward, {4 * 512 / dt} tokens/s, peak memory {peak} B, "
+        f"K1 launches {launches} ({first} per forward)")
+    log(f"flagship loss: K1 path {float(loss_k1)}, plain-attention path "
+        f"{float(loss_ref)}, |diff| {d_loss} (<=2e-2)")
+    check(math.isfinite(float(loss_k1)) and d_loss <= 2e-2,
+          "flash and reference losses disagree")
+    # End to end with the plain attention in K1's place, for comparison.
+    cfg_ref = dataclasses.replace(cfg, attn_impl="reference")
+
+    def ref_fn():
+        return forward(params, tokens, cfg_ref)
+
+    with torch.no_grad():
+        ref_fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ref_fn()
+        torch.cuda.synchronize()
+        dt_ref = (time.perf_counter() - t0) / n
+    log(f"flagship forward with plain mha_reference attention: "
+        f"{dt_ref * 1e3} ms per forward")
+    profile_forward(torch, lambda: fn(params, tokens))
+    return launches
+
+
+def profile_forward(torch, run, reps=3):
+    """Device busy time per forward and the kernels that take it, under
+    torch.profiler; the rest of the wall time is the device's idle share
+    (the profiler's own host cost included)."""
+    with torch.no_grad():
+        busy, wall_us = _profile(torch, run, reps)
+    total = sum(busy.values())
+    if not total:
+        log("forward profile: device time not measured (no CUDA events)")
+        return
+    log(f"forward profile (per forward, {reps} forwards): device busy "
+        f"{total} us of {wall_us} us wall, idle share "
+        f"{1 - total / wall_us}, {len(busy)} kernel names")
+    for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {us} us ({us / total:.3f} of busy)  {name[:100]}")
+
+
+def serve_phase(torch):
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    GLOBAL_CONFIG.paged_kv = True
+    GLOBAL_CONFIG.prefix_caching = True
+    GLOBAL_CONFIG.speculative_k = 3
+    dec = MeshShardedDecoder(kv_blocks=128)
+    system = list(range(20))
+    reqs = [{"prompt": system + [32 + i % 32, i], "tokens": 3 + i % 10}
+            for i in range(16)]
+    out = [None] * len(reqs)
+
+    def client(i):
+        out[i] = dec(reqs[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    _build.reset_launches()                       # main path 2 starts
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    launches = _build.launches["paged_decode"]    # main path 2 ends
+    check(not any(t.is_alive() for t in threads), "requests hung")
+    for r, got in zip(reqs, out):
+        check(got == dec.reference_decode(r["prompt"], r["tokens"]),
+              f"chain differs from reference_decode for {r}")
+    stats = dec.__dict__["__serve_batcher__decode"].stats()
+    log(f"served {len(reqs)} requests, {sum(len(o) for o in out)} tokens, "
+        f"tokens_per_step {stats['tokens_per_step']}, steps "
+        f"{stats['steps']}, prefix_hits {stats['prefix_hits']}, "
+        f"spec accepted {stats['spec_accepted']}/{stats['spec_proposed']}, "
+        f"K4 launches {launches}, wall {wall} s; every chain bitwise "
+        f"reference_decode")
+    check(launches > 0, "K4 never launched while serving")
+    check(stats["prefix_hits"] > 0, "no prefix hits")
+    return launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ray_tpu_torch.ops import _build   # the port must sit beside us
+
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"device: {name}; count {torch.cuda.device_count()}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("allow_tf32: matmul=False cudnn=False")
+    dev = torch.device("cuda:0")
+
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0} s")
+    for lib in libs.values():
+        report = lib.with_suffix(".so.log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {lib.stem}: {line.strip()}")
+
+    k1 = k1_phase(torch, dev)
+    k4 = k4_phase(torch, dev)
+    k1["launches"] = llama_phase(torch)
+    k4["launches"] = serve_phase(torch)
+    log(json.dumps({"kernels": [k1, k4]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,229 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, plus CPU tests of what surrounds them.
+
+Tests marked ``gpu`` need a CUDA card: the ``cuda`` fixture decides that
+when the test runs (never at import or collection, so every pytest-xdist
+worker collects the same tests) and skips without one.  On the card:
+
+    python -m pytest -m gpu tests/test_torch_kernels.py
+
+Shapes are chip_smoke.py's: K1 at the flagship shape (b=4, s=512, h=6,
+d=128, bf16, causal), one non-causal and one ragged GQA case, o within
+2e-2 (bf16 output, f32 accumulation) and lse within 1e-3 (f32); K4
+exact at the serving shape (f32, h=1, d=32, block 8, window=1) and each
+element within 1e-3 + 1e-2 * |plain| at a general bf16 shape.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.ops import _build, attention
+from ray_tpu_torch.ops.attention import flash_attention_fwd
+from ray_tpu_torch.ops.layers import repeat_kv_heads
+from ray_tpu_torch.ops.paged_attention import (
+    _paged_attention_plain, paged_attention)
+
+# Tiny shapes: more intra-op threads would only contend with the test
+# files that pytest-xdist runs beside these.
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python -m pytest -m gpu "
+                    "tests/test_torch_kernels.py on the H100)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _bf16(gen, shape, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,h_kv,causal", [
+    (4, 512, 6, 6, True), (2, 256, 6, 6, False), (2, 500, 6, 2, True)])
+def test_flash_kernel_matches_plain(cuda, b, s, h, h_kv, causal):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _bf16(gen, (b, s, h, 128), cuda)
+    k = _bf16(gen, (b, s, h_kv, 128), cuda)
+    v = _bf16(gen, (b, s, h_kv, 128), cuda)
+    before = _build.launches["flash_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    assert _build.launches["flash_fwd"] == before + 1
+    k2, v2 = repeat_kv_heads(q, k, v)
+    o_p, lse_p = attention._flash_fwd_plain(
+        attention._prescale(q, 128 ** -0.5), k2, v2, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.shape == (b, h, s)
+    assert float((o.float() - o_p.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 128), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(NotImplementedError, match="K2"):
+        q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda,
+                        requires_grad=True)
+        flash_attention_fwd(q, q, q)[0].sum().backward()
+
+
+def _paged_case(seed, B, h, d, bs, max_ctx, dtype, dev):
+    rng = np.random.default_rng(seed)
+    width = -(-max_ctx // bs)
+    nb = B * width
+    q = torch.from_numpy(rng.normal(size=(B, h, d))).to(dev, dtype)
+    kc = torch.from_numpy(rng.normal(size=(nb, bs, h, d))).to(dev, dtype)
+    vc = torch.from_numpy(rng.normal(size=(nb, bs, h, d))).to(dev, dtype)
+    bt = rng.permutation(nb).reshape(B, width).astype(np.int32)
+    cl = rng.integers(1, max_ctx + 1, size=B).astype(np.int32)
+    return (q, kc, vc, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(cl).to(dev))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_serving_shape_is_exact(cuda):
+    q, kc, vc, bt, cl = _paged_case(0, 8, 1, 32, 8, 40, torch.float32, cuda)
+    before = _build.launches["paged_decode"]
+    out = paged_attention(q, kc, vc, bt, cl, window=1)
+    assert _build.launches["paged_decode"] == before + 1
+    qs = (q * (32 ** -0.5 * attention._LOG2E)).to(q.dtype)
+    plain = _paged_attention_plain(qs, kc, vc, bt, cl, 1)
+    assert torch.equal(out, plain)
+    pos = (cl.long() - 1)
+    rows = vc[bt.long()[torch.arange(8, device=cuda), pos // 8], pos % 8]
+    assert torch.equal(out, rows)                  # the stored last rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 64])
+def test_paged_kernel_general_shape(cuda, window):
+    q, kc, vc, bt, cl = _paged_case(1, 8, 6, 128, 16, 1024, torch.bfloat16,
+                                    cuda)
+    out = paged_attention(q, kc, vc, bt, cl, window=window)
+    qs = (q * (128 ** -0.5 * attention._LOG2E)).to(q.dtype)
+    plain = _paged_attention_plain(qs, kc, vc, bt, cl, window).float()
+    # One bf16 ulp of rounding passes; a lost or repeated page does not.
+    assert bool(((out.float() - plain).abs()
+                 <= 1e-3 + 1e-2 * plain.abs()).all())
+
+
+@pytest.mark.gpu
+def test_paged_decoder_chains_on_card(cuda):
+    """Greedy chains on the card (first-max argmax, K4 gathers) are
+    bitwise the host reference."""
+    import threading
+
+    from ray_tpu_torch.serve.continuous import _ContinuousBatcher
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    dec = MeshShardedDecoder(paged=True, kv_blocks=128, speculative_k=3)
+    b = _ContinuousBatcher(dec._paged_step, None, 8, 0.0, continuous=True,
+                           kv=dec.serve_kv_engine)
+    reqs = [{"prompt": list(range(20)) + [i], "tokens": 3 + i % 10}
+            for i in range(16)]
+    out = [None] * len(reqs)
+    before = _build.launches["paged_decode"]
+
+    def client(i):
+        out[i] = b.submit(reqs[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    for r, got in zip(reqs, out):
+        assert got == dec.reference_decode(r["prompt"], r["tokens"])
+    assert _build.launches["paged_decode"] > before
+    assert b.stats()["prefix_hits"] > 0
+
+
+# -- CPU tests of what surrounds the kernels --------------------------------
+
+def test_port_and_chip_smoke_import_no_jax_or_reference():
+    """Every module of ray_tpu_torch, and chip_smoke.py, import neither
+    jax nor anything of ray_tpu (checked in a fresh interpreter)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ray_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ray_tpu_torch.__path__,\n"
+        "                               'ray_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.entry import entry
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MeshShardedDecoder()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No card: chip_smoke.py exits non-zero and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+
+
+def test_cpu_tensors_take_the_plain_path_without_launching():
+    before = dict(_build.launches)
+    q = torch.randn(1, 10, 2, 16)
+    o, lse = flash_attention_fwd(q, q, q)
+    assert o.shape == q.shape and lse.shape == (1, 2, 10)
+    kc = torch.randn(4, 8, 2, 16)
+    out = paged_attention(torch.randn(2, 2, 16), kc, kc,
+                          torch.tensor([[0, 1], [2, 3]], dtype=torch.int32),
+                          torch.tensor([9, 3], dtype=torch.int32))
+    assert out.shape == (2, 2, 16)
+    assert dict(_build.launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_fwd(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def test_kernel_sources_carry_their_note():
+    """Each CUDA source names the Pallas kernel it replaces and its
+    bound; the build keys each library on its source."""
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        assert "Replaces: ray_tpu/ops/" in text, src.name
+        assert "Bound:" in text, src.name
+        assert _build._target(src.stem).name.startswith(src.stem + "-")
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
+        "flash_fwd", "paged_decode"}
