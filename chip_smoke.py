@@ -7,25 +7,40 @@ Phases, each fatal on failure:
 
 1. The card: name, count, ``nvidia-smi`` name and power limit; TF32 off.
 2. Build every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (one ``nvcc``
-   per source, in parallel).
+   per source, in parallel); print ptxas' register and spill lines.
 3. K1 (flash-attention forward) against its plain PyTorch version at the
    flagship shape, one non-causal and one ragged GQA shape: o within 2e-2
    (bf16 output, f32 accumulation), lse within 1e-3 (f32).  Times of the
    kernel, the plain version and ``scaled_dot_product_attention``.
-4. K4 (paged decode attention) against its plain version: exact at the
+4. K2 and K3 (flash-attention backward: dk/dv and dq) at the same three
+   shapes against the plain backward on the same inputs: each of dq, dk,
+   dv within 2e-2 * max|plain| (a few bf16 ulps at the largest
+   magnitude), and no further from an f32 ``mha_reference`` autograd
+   gradient than 2x the plain version's distance + 1e-3.  Times of K2,
+   K3, delta, the plain versions and the SDPA backward (which covers
+   K2 + K3 + delta together), and the bounds.
+5. K4 (paged decode attention) against its plain version: exact at the
    serving shape (f32, h=1, d=32, block 8, window=1); at a general bf16
    shape (B=8, h=6, d=128, block 16, ctx 1-1024, windows 0 and 64) each
    element within 1e-3 + 1e-2 * |plain| (one bf16 ulp passes, a lost
    page does not).  Times from the profiler's kernel records, the bound
    from the bytes and flop these inputs need.
-5. Main path 1: the flagship Llama forward through
+6. Main path 1: the flagship Llama forward through
    ``ray_tpu_torch.entry.entry()`` at full width (12 layers, 4 x 512,
    bf16): finite logits, K1 launched 12 times per forward, the loss of the
    K1 path within 2e-2 of the plain-attention path; ms per forward,
    tokens/s, peak memory.
-6. Main path 2: 16 requests from threads through the paged decoder under
+7. Main path 2: 16 requests from threads through the paged decoder under
    the continuous batcher (paged_kv, prefix caching, speculative_k=3):
    every chain bitwise ``reference_decode``, K4 launched, prefix hits.
+8. Main path 3: the flagship train step (``ray_tpu_torch.train``, remat
+   on, batch 4 x 513 tokens, AdamW with a short warmup): K1/K2/K3
+   launched 24/12/12 times per step; the first step's loss within 1e-3
+   of ``loss_fn`` under no_grad; its grads against the plain-attention
+   step's (grad_norm within 2e-2 relative, each leaf's relative L2 error
+   within 5e-2); a falling, finite loss over the steps on one batch; ms
+   per step, tokens/s, peak memory, the plain-attention step's time, and
+   a profile of one step.
 
 Launch counts are set to 0 just before each main path and read just after
 it.  Prints the kernels line, then as its last line
@@ -164,6 +179,107 @@ def k1_phase(torch, dev):
     return result
 
 
+def k23_phase(torch, dev):
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops.layers import repeat_kv_heads
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    scale = 128 ** -0.5
+    result = None
+    for b, s, h, h_kv, causal in ((4, 512, 6, 6, True),
+                                  (2, 256, 6, 6, False),
+                                  (2, 500, 6, 2, True)):
+        q, k, v, do = (torch.randn((b, s, hh, 128), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for hh in (h, h_kv, h_kv, h))
+        qs = attention._prescale(q, scale)
+        o, lse = attention._flash_fwd_cuda(qs, k, v, causal)
+        delta = attention._delta(o, do)
+        dk, dv = attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, causal)
+        dq = attention._flash_dq_cuda(qs, k, v, do, lse, delta, causal,
+                                      scale)
+        k2, v2 = repeat_kv_heads(q, k, v)
+        dk_p, dv_p = (attention._sum_kv_groups(x, h_kv) for x in
+                      attention._flash_dkdv_plain(qs, k2, v2, do, lse, delta,
+                                                  causal))
+        dq_p = attention._flash_dq_plain(qs, k2, v2, do, lse, delta, causal,
+                                         scale)
+        # The f32 gradient of the same function, by autograd.
+        qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+        of = attention.mha_reference(qf, *repeat_kv_heads(qf, kf, vf),
+                                     causal=causal)
+        ref = torch.autograd.grad(of, (qf, kf, vf), do.float())
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, plain, r in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                       (dq_p, dk_p, dv_p), ref):
+            diff = float((got.float() - plain.float()).abs().max())
+            lim = 2e-2 * float(plain.float().abs().max())
+            e_k = float((got.float() - r).abs().max())
+            e_p = float((plain.float() - r).abs().max())
+            log(f"K2/K3 b={b} s={s} h={h}->{h_kv} causal={causal} {name}: "
+                f"max_abs_err to plain {diff} (<= {lim}, 2e-2*max|plain|); "
+                f"to f32 reference: kernel {e_k}, plain {e_p} (kernel <= "
+                f"{2 * e_p + 1e-3})")
+            check(diff <= lim, f"{name} disagrees with the plain backward")
+            check(e_k <= 2 * e_p + 1e-3, f"{name} is further from the f32 "
+                  f"gradient than the plain backward allows")
+            errs[name] = diff
+        if result is not None:
+            continue
+        # The flagship shape: time it.
+        ms2 = device_ms(torch, lambda: attention._flash_dkdv_cuda(
+            qs, k, v, do, lse, delta, causal), 20, kernel="flash_dkdv_kernel")
+        ms3 = device_ms(torch, lambda: attention._flash_dq_cuda(
+            qs, k, v, do, lse, delta, causal, scale), 20,
+            kernel="flash_dq_kernel")
+        delta_ms = device_ms(torch, lambda: attention._delta(o, do), 20)
+        plain2 = device_ms(torch, lambda: attention._flash_dkdv_plain(
+            qs, k2, v2, do, lse, delta, causal), 3)
+        plain3 = device_ms(torch, lambda: attention._flash_dq_plain(
+            qs, k2, v2, do, lse, delta, causal, scale), 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+        lib_ms = device_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), 20)
+        port_ms = ms2 + ms3 + delta_ms
+        pairs = s * (s + 1) // 2 if causal else s * s
+        q_b = q.numel() * q.element_size()           # q, do, dq
+        kv_b = k.numel() * k.element_size()          # k, v, dk, dv
+        row_b = lse.numel() * 4                      # lse, delta
+        b2 = bound(2 * q_b + 4 * kv_b + 2 * row_b, 8 * 128 * pairs * b * h,
+                   BF16_FLOPS)
+        b3 = bound(3 * q_b + 2 * kv_b + 2 * row_b, 6 * 128 * pairs * b * h,
+                   BF16_FLOPS)
+        log(f"K2/K3 flagship shape (device time per call): K2 {ms2} ms, "
+            f"K3 {ms3} ms, delta {delta_ms} ms, K2+K3+delta {port_ms} ms; "
+            f"plain K2 {plain2} ms, plain K3 {plain3} ms; SDPA backward "
+            f"(K2+K3+delta together) {lib_ms} ms; bound K2 {b2[0]} ms "
+            f"({b2[1]}: {2 * q_b + 4 * kv_b + 2 * row_b} B, "
+            f"{8 * 128 * pairs * b * h} flop), K3 {b3[0]} ms ({b3[1]}: "
+            f"{3 * q_b + 2 * kv_b + 2 * row_b} B, {6 * 128 * pairs * b * h} "
+            f"flop)")
+        joint = {"library_covers": "K2+K3+delta (SDPA backward)",
+                 "port_bwd_ms": port_ms, "delta_ms": delta_ms}
+        result = (
+            dict({"name": "K2_flash_dkdv", "route": "cuda",
+                  "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                  "replaces": "ray_tpu/ops/attention.py:181",
+                  "max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms2,
+                  "plain_ms": plain2, "bound_ms": b2[0], "bound_by": b2[1],
+                  "library_ms": lib_ms}, **joint),
+            dict({"name": "K3_flash_dq", "route": "cuda",
+                  "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                  "replaces": "ray_tpu/ops/attention.py:227",
+                  "max_abs_err": errs["dq"], "ms": ms3, "plain_ms": plain3,
+                  "bound_ms": b3[0], "bound_by": b3[1],
+                  "library_ms": lib_ms}, **joint))
+    return result
+
+
 def _paged_inputs(torch, dev, seed, B, h, d, bs, max_ctx, dtype):
     import numpy as np
 
@@ -201,7 +317,7 @@ def k4_phase(torch, dev):
         _paged_attention_plain, paged_attention)
 
     def plain(q, kc, vc, bt, cl, window):
-        qs = (q * (q.shape[-1] ** -0.5 * attention._LOG2E)).to(q.dtype)
+        qs = attention._prescale(q, q.shape[-1] ** -0.5)
         return _paged_attention_plain(qs, kc, vc, bt, cl, window)
 
     # The serving shape (what the decoder's _read_last launches).
@@ -315,25 +431,109 @@ def llama_phase(torch):
         dt_ref = (time.perf_counter() - t0) / n
     log(f"flagship forward with plain mha_reference attention: "
         f"{dt_ref * 1e3} ms per forward")
-    profile_forward(torch, lambda: fn(params, tokens))
+    with torch.no_grad():
+        profile_run(torch, lambda: fn(params, tokens), "forward")
     return launches
 
 
-def profile_forward(torch, run, reps=3):
-    """Device busy time per forward and the kernels that take it, under
-    torch.profiler; the rest of the wall time is the device's idle share
-    (the profiler's own host cost included)."""
-    with torch.no_grad():
-        busy, wall_us = _profile(torch, run, reps)
+def profile_run(torch, run, what, reps=3, top=10):
+    """Device busy time per ``what`` (a forward, a step) and the kernels
+    that take it, under torch.profiler; the rest of the wall time is the
+    device's idle share (the profiler's own host cost included)."""
+    busy, wall_us = _profile(torch, run, reps)
     total = sum(busy.values())
     if not total:
-        log("forward profile: device time not measured (no CUDA events)")
+        log(f"{what} profile: device time not measured (no CUDA events)")
         return
-    log(f"forward profile (per forward, {reps} forwards): device busy "
+    log(f"{what} profile (per {what}, {reps} runs): device busy "
         f"{total} us of {wall_us} us wall, idle share "
         f"{1 - total / wall_us}, {len(busy)} kernel names")
-    for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+    for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us} us ({us / total:.3f} of busy)  {name[:100]}")
+
+
+def train_phase(torch, n=8):
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.models import loss_fn
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.train import (
+        default_optimizer, init_train_state, loss_and_grads, make_train_step)
+    from ray_tpu_torch.train.core import global_norm, tree_leaves
+
+    dev = torch.device("cuda:0")
+    cfg = _flagship_cfg()
+    cfg_ref = dataclasses.replace(cfg, attn_impl="reference")
+    check(cfg.remat, "the flagship trains with remat")
+    opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+    state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                             .manual_seed(0), dev)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (4, 513), dtype=torch.int64, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}
+    # Grads of the K1-K3 step against the plain-attention step on the same
+    # params; each leaf's relative L2 error within 5e-2 (bf16 rounding
+    # points differ between the two attentions).
+    _, _, g = loss_and_grads(state.params, batch, cfg)
+    _, _, g_ref = loss_and_grads(state.params, batch, cfg_ref)
+    norm = float(global_norm(tree_leaves(g)))
+    norm_ref = float(global_norm(tree_leaves(g_ref)))
+    rel = [float((a - r).norm() / r.norm())
+           for a, r in zip(tree_leaves(g), tree_leaves(g_ref))]
+    del g, g_ref
+    log(f"flagship grads, K1-K3 step vs plain-attention step: grad_norm "
+        f"{norm} vs {norm_ref} (relative {abs(norm - norm_ref) / norm_ref}, "
+        f"<= 2e-2); per-leaf relative L2 error max {max(rel)} (<= 5e-2), "
+        f"all {rel}")
+    check(abs(norm - norm_ref) <= 2e-2 * norm_ref, "grad_norm disagrees")
+    check(max(rel) <= 5e-2, "a leaf's grads disagree")
+    with torch.no_grad():
+        loss0, _ = loss_fn(state.params, batch, cfg)
+    step = make_train_step(cfg, opt)
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()                       # main path 3 starts
+    state, m0 = step(state, batch)
+    first = [_build.launches[k] for k in keys]
+    metrics = [m0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    launches = [_build.launches[k] for k in keys]  # main path 3 ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    L = cfg.num_layers
+    log(f"flagship train step (12 layers, 4 x 512 tokens, remat, bf16): "
+        f"{dt * 1e3} ms per step, {4 * 512 / dt} tokens/s, peak memory "
+        f"{peak} B; launches K1/K2/K3 {launches} in {n + 1} steps ({first} "
+        f"in the first)")
+    log(f"train losses {losses}; first step's loss {losses[0]} vs loss_fn "
+        f"under no_grad {float(loss0)} (<= 1e-3); its grad_norm "
+        f"{float(m0['grad_norm'])}")
+    check(first == [2 * L, L, L], f"K1/K2/K3 launched {first} times in one "
+          f"step, expected {[2 * L, L, L]}")
+    check(launches == [x * (n + 1) for x in first], "launches per step")
+    check(abs(losses[0] - float(loss0)) <= 1e-3, "step loss != loss_fn")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(losses[-1] < losses[0], "the loss did not fall")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(
+        state.params)), "non-finite params")
+    # The same step with the plain mha_reference attention, for comparison.
+    step_ref = make_train_step(cfg_ref, opt)
+    step_ref(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step_ref(state, batch)
+    torch.cuda.synchronize()
+    log(f"flagship train step with plain mha_reference attention: "
+        f"{(time.perf_counter() - t0) / n * 1e3} ms per step")
+    profile_run(torch, lambda: step(state, batch), "step", top=12)
+    return dict(zip(keys, launches))
 
 
 def serve_phase(torch):
@@ -407,14 +607,19 @@ def main():
         report = lib.with_suffix(".so.log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or \
+                        "spill" in line:
                     log(f"  ptxas {lib.stem}: {line.strip()}")
 
     k1 = k1_phase(torch, dev)
+    k2, k3 = k23_phase(torch, dev)
     k4 = k4_phase(torch, dev)
     k1["launches"] = llama_phase(torch)
     k4["launches"] = serve_phase(torch)
-    log(json.dumps({"kernels": [k1, k4]}))
+    train = train_phase(torch)
+    k2["launches"] = train["flash_dkdv"]
+    k3["launches"] = train["flash_dq"]
+    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

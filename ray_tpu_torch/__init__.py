@@ -7,14 +7,15 @@ Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
 CPU tensors.  Entry points default to ``cuda:0`` and raise without a card
 unless ``device="cpu"`` is given.
 
-Ported so far: the flagship Llama forward (``models``, ``entry``) with the
-flash-attention forward kernel, and the paged serving decoder
-(``serve.gpu_replica``) with the paged decode-attention kernel.  There are
-no runtime re-exports: the Ray-style runtime is not ported yet.
+Ported so far: the flagship Llama forward (``models``, ``entry``) and its
+train step (``train``) with the flash-attention forward and backward
+kernels, and the paged serving decoder (``serve.gpu_replica``) with the
+paged decode-attention kernel.  There are no runtime re-exports: the
+Ray-style runtime is not ported yet.
 """
 
-from ray_tpu_torch import entry, models, ops, serve
+from ray_tpu_torch import entry, models, ops, serve, train
 
 __version__ = "0.1.0"
 
-__all__ = ["entry", "models", "ops", "serve", "__version__"]
+__all__ = ["entry", "models", "ops", "serve", "train", "__version__"]

@@ -1,5 +1,5 @@
 """Parameters for the port's Llama: conversion from the reference's param
-pytree, and a seeded initializer.
+pytree and train state, and a seeded initializer.
 
 The reference draws its weights with ``jax.random``, whose numbers no
 torch generator reproduces, so parity tests convert the reference's own
@@ -72,3 +72,35 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                                  device=dev),
         "lm_head": normal((cfg.embed_dim, cfg.vocab_size), cfg.embed_dim),
     }
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax chain
+    state of nested tuples, found by its fields (optax is not imported)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(np_state: Any, cfg: LlamaConfig, device=None):
+    """The reference's ``TrainState`` (step, params, optax opt_state of
+    ``default_optimizer``; leaves handed over as numpy arrays) -> the
+    port's ``train.TrainState`` on ``device``: the step, the params, and
+    AdamW's count and moments ``mu``/``nu``."""
+    from ray_tpu_torch.train.core import TrainState  # train imports models
+
+    adam = _adam_state(np_state.opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam state "
+                         "(count, mu, nu)")
+    return TrainState(
+        step=int(np_state.step),
+        params=params_from_jax(np_state.params, cfg, device),
+        opt_state={"count": int(adam.count),
+                   "mu": params_from_jax(adam.mu, cfg, device),
+                   "nu": params_from_jax(adam.nu, cfg, device)})

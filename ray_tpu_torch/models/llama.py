@@ -6,9 +6,13 @@ STACKED on a leading ``(L, ...)`` dim and every projection is ``x @ W``,
 so converting the reference's param pytree is a plain copy
 (``models.convert``).  Params live in ``cfg.param_dtype`` and are cast to
 ``cfg.dtype`` (bf16 on the flagship) at use; RMSNorm statistics, logits
-and the loss are f32.  Attention goes to the flash kernel K1
+and the loss are f32.  Attention goes to the flash kernels K1-K3
 (``attn_impl="flash"``) or the plain ``mha_reference``; the large matmuls
-stay ``torch.matmul``, as the reference leaves them to XLA.
+stay ``torch.matmul``, as the reference leaves them to XLA.  With
+``cfg.remat`` and grad enabled, each layer runs under activation
+checkpointing, as the reference wraps its layer in ``jax.checkpoint``: the
+backward recomputes the layer's forward (K1 included) instead of keeping
+its activations.
 
 Not ported yet (each raises ``NotImplementedError``): ring and Ulysses
 sequence-parallel attention, MoE layers, mesh sharding and the pipelined
@@ -22,6 +26,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.layers import (
@@ -143,9 +148,17 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     s = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rope(s, cfg.head_dim, cfg.rope_theta, device=x.device)
-    layers = params["layers"]
+    # One unbind per stacked param: its backward stacks the layers' grads
+    # in one pass, where indexing w[i] per layer would add L zero-padded
+    # (L, ...) grads together.
+    layers = {n: w.unbind(0) for n, w in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x = _layer(x, {n: w[i] for n, w in layers.items()}, cfg, cos, sin)
+        lp = {n: w[i] for n, w in layers.items()}
+        if remat:
+            x = checkpoint(_layer, x, lp, cfg, cos, sin, use_reentrant=False)
+        else:
+            x = _layer(x, lp, cfg, cos, sin)
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(cfg.dtype)).float()
     # Dense layers carry no router loss (the reference's aux / num_layers).

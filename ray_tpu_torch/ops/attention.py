@@ -1,20 +1,26 @@
-"""Flash attention forward: the hand-written CUDA kernel K1 and its plain
-PyTorch version (counterpart: ``ray_tpu/ops/attention.py``).
+"""Flash attention, forward and backward: the hand-written CUDA kernels
+K1-K3 and their plain PyTorch versions (counterpart:
+``ray_tpu/ops/attention.py``).
 
-The kernel (``csrc/flash_fwd.cu``) replaces the Pallas kernel
-``_fwd_kernel``: a log2-domain online softmax over kv tiles, q pre-scaled
-by ``sm_scale*log2(e)`` and rounded back to q's dtype before the kernel
-(as the reference does), fully masked causal tiles skipped, ``o = acc/l``
-and ``lse = m + log2(l)``.  The plain version below emulates the same
-algorithm block by block in PyTorch; it is what runs for CPU tensors and
-what the kernel is held against on the card.
+- K1 (``csrc/flash_fwd.cu``) replaces the Pallas ``_fwd_kernel``: a
+  log2-domain online softmax over kv tiles, q pre-scaled by
+  ``sm_scale*log2(e)`` and rounded back to q's dtype before the kernel (as
+  the reference does), fully masked causal tiles skipped, ``o = acc/l``
+  and ``lse = m + log2(l)``.
+- K2 and K3 (``csrc/flash_bwd.cu``) replace ``_dkdv_kernel`` and
+  ``_dq_kernel``: both recompute ``p = exp2(s - lse)`` from the saved
+  log2-domain lse, round ``p`` and ``ds = p*(dp - delta)`` to the input
+  dtype before the grad products, accumulate in f32, and scale dk by
+  ``ln 2`` and dq by ``sm_scale`` at the end.  ``delta = rowsum(o*do)``
+  is a PyTorch expression, as the reference leaves it to XLA.
 
-Unlike the reference, the kernel masks ragged sequence tails itself, so
-there is no ``_fit_block`` fallback to ``mha_reference``: on CUDA the
-kernel always runs.  The backward kernels (the reference's
-``_dkdv_kernel``/``_dq_kernel``) are the next slice of the port; until
-then the CUDA path has no gradient, while the CPU path stays
-differentiable by autograd.
+One ``torch.autograd.Function`` on the unscaled q (the reference's
+``custom_vjp`` on ``_flash``) holds all three: CUDA tensors launch the
+kernels, CPU tensors run the plain versions below, which follow the same
+algorithm block by block and are what the kernels are held against on the
+card.  The kernels mask ragged sequence tails themselves, so there is no
+``_fit_block`` fallback to ``mha_reference``: on CUDA the kernels always
+run, and what they do not take raises.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from ray_tpu_torch.ops.layers import repeat_kv_heads
 
 NEG_INF = -1e30  # finite "minus infinity": keeps exp() NaN-free on masked rows
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _KERNEL = "flash_fwd"
+_BWD_LIB = "flash_bwd"
 # The plain version's kv block (the kernel's tile width).
 _PLAIN_BLOCK_K = 64
 
@@ -52,9 +60,12 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
-    # Rounded back to q's dtype: the kernel and its plain version see the
-    # same bits, as in the reference (attention.py:321).
-    return (q * (sm_scale * _LOG2E)).to(q.dtype)
+    """``q * (sm_scale*log2(e))`` rounded back to q's dtype, with the same
+    bits as the reference's ``(q * c).astype(q.dtype)`` (attention.py:321):
+    there the Python float ``c`` is weakly typed and becomes a constant of
+    q's dtype before the product, so it is rounded to q's dtype here too."""
+    c = float(torch.tensor(sm_scale * _LOG2E, dtype=q.dtype))  # host only
+    return (q * c).to(q.dtype)
 
 
 def _flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,6 +98,74 @@ def _flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = (acc / l).to(qs.dtype).transpose(1, 2)
     lse = (m + torch.log2(l))[..., 0]
     return o, lse
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(o*do)`` in f32, (b, h, sq): the reference computes it
+    outside its kernels (attention.py:272-274)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_blocks(qs, k, v, do, lse, delta, causal):
+    """The recompute both plain backward kernels share, per kv block of
+    ``_PLAIN_BLOCK_K``: yields ``(k0, k1, p, ds)`` with ``p = exp2(s -
+    lse)`` f32 and ``ds = p*(dp - delta)`` rounded to q's dtype, both
+    (b, h, sq, bk); masked entries are exactly 0."""
+    sq, sk = qs.shape[1], k.shape[1]
+    qf = qs.float().transpose(1, 2)                          # (b, h, sq, d)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    rows = torch.arange(sq, device=qs.device)[:, None]
+    for k0 in range(0, sk, _PLAIN_BLOCK_K):
+        k1 = min(k0 + _PLAIN_BLOCK_K, sk)
+        s = qf @ kf[:, :, k0:k1].transpose(-1, -2)           # (b, h, sq, bk)
+        if causal:
+            cols = torch.arange(k0, k1, device=qs.device)[None, :]
+            s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+        p = torch.exp2(s - lse[..., None])
+        dp = dof @ vf[:, :, k0:k1].transpose(-1, -2)
+        yield k0, k1, p, (p * (dp - delta[..., None])).to(qs.dtype)
+
+
+def _flash_dkdv_plain(qs, k, v, do, lse, delta, causal
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2 on pre-scaled q, k/v at q's head count: per kv
+    block, ``dv = p^T do`` with p in do's dtype and ``dk = ln2 * ds^T qs``,
+    f32 accumulation.  Returns ``(dk, dv)`` (b, sk, h, d) in k's and v's
+    dtypes."""
+    dof = do.float().transpose(1, 2)
+    qf = qs.float().transpose(1, 2)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    for k0, k1, p, ds in _bwd_blocks(qs, k, v, do, lse, delta, causal):
+        dv[:, k0:k1] = (p.to(do.dtype).float().transpose(-1, -2)
+                        @ dof).transpose(1, 2)
+        dk[:, k0:k1] = (ds.float().transpose(-1, -2)
+                        @ qf).transpose(1, 2) * _LN2
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_dq_plain(qs, k, v, do, lse, delta, causal,
+                    sm_scale: float) -> torch.Tensor:
+    """Plain version of K3: ``dq = sm_scale * sum over kv blocks of
+    ds k`` with ds in q's dtype, f32 accumulation.  Returns dq
+    (b, sq, h, d) in q's dtype (the gradient of the UNSCALED q)."""
+    kf = k.float().transpose(1, 2)
+    dq = torch.zeros(qs.transpose(1, 2).shape, dtype=torch.float32,
+                     device=qs.device)
+    for k0, k1, _, ds in _bwd_blocks(qs, k, v, do, lse, delta, causal):
+        dq += ds.float() @ kf[:, :, k0:k1]
+    return (dq * sm_scale).to(qs.dtype).transpose(1, 2)
+
+
+def _sum_kv_groups(x: torch.Tensor, h_kv: int) -> torch.Tensor:
+    """(b, s, h, d) gradient at q's head count -> (b, s, h_kv, d): the
+    transpose of ``repeat_kv_heads`` (q head i reads kv head i // group)."""
+    b, s, h, d = x.shape
+    if h == h_kv:
+        return x
+    return x.reshape(b, s, h_kv, h // h_kv, d).sum(3)
 
 
 def _check_cuda_inputs(q, k, v):
@@ -133,19 +212,97 @@ def _flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-class _FlashFwd(torch.autograd.Function):
-    """K1 as an autograd node.  Its backward is the next slice of the
-    port (K2 ``_dkdv_kernel`` and K3 ``_dq_kernel``)."""
+def _check_cuda_grad_inputs(qs, k, v, do, lse, delta):
+    _check_cuda_inputs(qs, k, v)
+    if do.shape != qs.shape or do.dtype != qs.dtype or \
+            do.device != qs.device or not do.is_contiguous():
+        raise ValueError(f"do must be a contiguous {qs.dtype} tensor of q's "
+                         f"shape {tuple(qs.shape)}")
+    b, sq, h, _ = qs.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, sq) or x.dtype != torch.float32 or \
+                x.device != qs.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"(b, h, sq) = {(b, h, sq)} tensor")
+
+
+def _flash_dkdv_cuda(qs, k, v, do, lse, delta, causal
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2: dk, dv at k/v's own (GQA) head count; each block sums
+    over the q heads of its kv head."""
+    _check_cuda_grad_inputs(qs, k, v, do, lse, delta)
+    b, sq, h, d = qs.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function(
+        _BWD_LIB, "rtt_flash_dkdv_bf16",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    with torch.cuda.device(qs.device):
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+                 int(causal), stream)
+    _build.launches["flash_dkdv"] += 1
+    _build.check_launch(_BWD_LIB, err)
+    return dk, dv
+
+
+def _flash_dq_cuda(qs, k, v, do, lse, delta, causal,
+                   sm_scale: float) -> torch.Tensor:
+    """Launch K3: dq (b, sq, h, d), the gradient of the unscaled q."""
+    _check_cuda_grad_inputs(qs, k, v, do, lse, delta)
+    b, sq, h, d = qs.shape
+    dq = torch.empty_like(qs)
+    fn = _build.function(
+        _BWD_LIB, "rtt_flash_dq_bf16",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                      ctypes.c_void_p])
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    with torch.cuda.device(qs.device):
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h,
+                 k.shape[2], sq, k.shape[1], d, int(causal), sm_scale,
+                 stream)
+    _build.launches["flash_dq"] += 1
+    _build.check_launch(_BWD_LIB, err)
+    return dq
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention on the UNSCALED q, as the reference's custom VJP
+    (attention.py:319-341): the pre-scale is inside the node and treated
+    as exact, so dq is ``sm_scale * ds k``.  Returns ``(o, lse)``; lse is
+    not differentiable."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, causal):
-        return _flash_fwd_cuda(qs, k, v, causal)
+    def forward(ctx, q, k, v, causal, sm_scale):
+        qs = _prescale(q, sm_scale)
+        if q.is_cuda:
+            o, lse = _flash_fwd_cuda(qs, k, v, causal)
+        else:
+            o, lse = _flash_fwd_plain(qs, *repeat_kv_heads(q, k, v), causal)
+        ctx.save_for_backward(qs, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "flash attention backward on CUDA needs kernels K2 (_dkdv_kernel) "
-            "and K3 (_dq_kernel), which are the next slice of the port")
+    def backward(ctx, do, _dlse):
+        qs, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = _delta(o, do)
+        if qs.is_cuda:
+            dk, dv = _flash_dkdv_cuda(qs, k, v, do, lse, delta, ctx.causal)
+            dq = _flash_dq_cuda(qs, k, v, do, lse, delta, ctx.causal,
+                                ctx.sm_scale)
+        else:
+            k2, v2 = repeat_kv_heads(qs, k, v)
+            dk, dv = _flash_dkdv_plain(qs, k2, v2, do, lse, delta,
+                                       ctx.causal)
+            dq = _flash_dq_plain(qs, k2, v2, do, lse, delta, ctx.causal,
+                                 ctx.sm_scale)
+            dk, dv = (_sum_kv_groups(x, k.shape[2]) for x in (dk, dv))
+        return dq, dk, dv, None, None
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -157,18 +314,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype and lse (b, h, sq) f32 in the log2 domain (scores pre-scaled by
     ``sm_scale*log2(e)``).
 
-    CUDA tensors always launch the kernel K1 (bfloat16, head_dim 32/64/128,
-    any sequence lengths: ragged tails are masked in the kernel); what it
-    does not take raises.  CPU tensors take the plain version."""
+    CUDA tensors always launch the kernel K1, and K2/K3 in the backward
+    (bfloat16, head_dim 32/64/128, any sequence lengths: ragged tails are
+    masked in the kernels); what they do not take raises.  CPU tensors
+    take the plain versions."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    qs = _prescale(q, sm_scale)
-    if q.is_cuda:
-        return _FlashFwd.apply(qs, k, v, causal)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
-    k, v = repeat_kv_heads(q, k, v)
-    return _flash_fwd_plain(qs, k, v, causal)
+    return _Flash.apply(q, k, v, causal, sm_scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

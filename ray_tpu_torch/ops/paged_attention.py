@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import NEG_INF, _LOG2E
+from ray_tpu_torch.ops.attention import NEG_INF, _prescale
 
 _KERNEL = "paged_decode"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,7 +153,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         sm_scale = q.shape[-1] ** -0.5
     # Pre-scaled into the log2 domain and rounded back to q's dtype, as
     # the reference does.
-    qs = (q * (sm_scale * _LOG2E)).to(q.dtype)
+    qs = _prescale(q, sm_scale)
     bt = torch.as_tensor(block_tables, device=q.device)
     cl = torch.as_tensor(context_lens, device=q.device)
     if q.is_cuda:

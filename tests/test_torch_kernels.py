@@ -9,9 +9,12 @@ worker collects the same tests) and skips without one.  On the card:
 
 Shapes are chip_smoke.py's: K1 at the flagship shape (b=4, s=512, h=6,
 d=128, bf16, causal), one non-causal and one ragged GQA case, o within
-2e-2 (bf16 output, f32 accumulation) and lse within 1e-3 (f32); K4
-exact at the serving shape (f32, h=1, d=32, block 8, window=1) and each
-element within 1e-3 + 1e-2 * |plain| at a general bf16 shape.
+2e-2 (bf16 output, f32 accumulation) and lse within 1e-3 (f32); K2 and
+K3 at the same three shapes, dq, dk and dv within 2e-2 * max|plain| of
+the plain backward on the same inputs (a few bf16 ulps at the largest
+magnitude); K4 exact at the serving shape (f32, h=1, d=32, block 8,
+window=1) and each element within 1e-3 + 1e-2 * |plain| at a general
+bf16 shape.
 """
 
 import os
@@ -77,10 +80,73 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(q, q, q)
-    with pytest.raises(NotImplementedError, match="K2"):
-        q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda,
-                        requires_grad=True)
-        flash_attention_fwd(q, q, q)[0].sum().backward()
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    before = dict(_build.launches)
+    flash_attention_fwd(q, q, q)[0].sum().backward()
+    assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad).all())
+    for name in ("flash_dkdv", "flash_dq"):   # the backward is K2 + K3
+        assert _build.launches[name] == before.get(name, 0) + 1
+
+
+def _bwd_case(gen, b, s, h, h_kv, dev):
+    """Inputs of the backward kernels: pre-scaled q, k, v, do, and o/lse
+    from K1."""
+    q = _bf16(gen, (b, s, h, 128), dev)
+    k = _bf16(gen, (b, s, h_kv, 128), dev)
+    v = _bf16(gen, (b, s, h_kv, 128), dev)
+    do = _bf16(gen, (b, s, h, 128), dev)
+    return attention._prescale(q, 128 ** -0.5), k, v, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,h_kv,causal", [
+    (4, 512, 6, 6, True), (2, 256, 6, 6, False), (2, 500, 6, 2, True)])
+def test_flash_bwd_kernels_match_plain(cuda, b, s, h, h_kv, causal):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qs, k, v, do = _bwd_case(gen, b, s, h, h_kv, cuda)
+    o, lse = attention._flash_fwd_cuda(qs, k, v, causal)
+    delta = attention._delta(o, do)
+    before = dict(_build.launches)
+    dk, dv = attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, causal)
+    dq = attention._flash_dq_cuda(qs, k, v, do, lse, delta, causal,
+                                  128 ** -0.5)
+    assert _build.launches["flash_dkdv"] == before.get("flash_dkdv", 0) + 1
+    assert _build.launches["flash_dq"] == before.get("flash_dq", 0) + 1
+    k2, v2 = repeat_kv_heads(qs, k, v)
+    dk_p, dv_p = (attention._sum_kv_groups(x, h_kv) for x in
+                  attention._flash_dkdv_plain(qs, k2, v2, do, lse, delta,
+                                              causal))
+    dq_p = attention._flash_dq_plain(qs, k2, v2, do, lse, delta, causal,
+                                     128 ** -0.5)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernels_raise_on_what_they_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    qs, k, v, do = _bwd_case(gen, 1, 64, 2, 2, cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    args = (qs, k, v, do, lse, lse)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention._flash_dkdv_cuda(qs.float(), k, v, do, lse, lse, True)
+    with pytest.raises(ValueError, match="do must be"):
+        attention._flash_dq_cuda(qs, k, v, do.float(), lse, lse, True, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention._flash_dkdv_cuda(qs, k, v, do.transpose(1, 2)
+                                   .contiguous().transpose(1, 2), lse, lse,
+                                   True)
+    with pytest.raises(ValueError, match="lse must be"):
+        attention._flash_dq_cuda(qs, k, v, do, lse[:, :, :32], lse, True,
+                                 1.0)
+    q80 = torch.zeros((1, 64, 2, 80), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention._flash_dq_cuda(q80, q80, q80, q80, lse, lse, True, 1.0)
+    attention._flash_dq_cuda(*args, True, 1.0)     # what they do take runs
 
 
 def _paged_case(seed, B, h, d, bs, max_ctx, dtype, dev):
@@ -102,8 +168,8 @@ def test_paged_kernel_serving_shape_is_exact(cuda):
     before = _build.launches["paged_decode"]
     out = paged_attention(q, kc, vc, bt, cl, window=1)
     assert _build.launches["paged_decode"] == before + 1
-    qs = (q * (32 ** -0.5 * attention._LOG2E)).to(q.dtype)
-    plain = _paged_attention_plain(qs, kc, vc, bt, cl, 1)
+    plain = _paged_attention_plain(attention._prescale(q, 32 ** -0.5), kc,
+                                   vc, bt, cl, 1)
     assert torch.equal(out, plain)
     pos = (cl.long() - 1)
     rows = vc[bt.long()[torch.arange(8, device=cuda), pos // 8], pos % 8]
@@ -116,8 +182,8 @@ def test_paged_kernel_general_shape(cuda, window):
     q, kc, vc, bt, cl = _paged_case(1, 8, 6, 128, 16, 1024, torch.bfloat16,
                                     cuda)
     out = paged_attention(q, kc, vc, bt, cl, window=window)
-    qs = (q * (128 ** -0.5 * attention._LOG2E)).to(q.dtype)
-    plain = _paged_attention_plain(qs, kc, vc, bt, cl, window).float()
+    plain = _paged_attention_plain(attention._prescale(q, 128 ** -0.5), kc,
+                                   vc, bt, cl, window).float()
     # One bf16 ulp of rounding passes; a lost or repeated page does not.
     assert bool(((out.float() - plain).abs()
                  <= 1e-3 + 1e-2 * plain.abs()).all())
@@ -217,6 +283,30 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
         flash_attention_fwd(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+def test_cpu_backward_runs_the_plain_kernels_without_launching():
+    """The backward of CPU tensors is K2's and K3's plain versions (the
+    GQA grads summed back to the kv heads), with no launch counted."""
+    before = dict(_build.launches)
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 20, 4, 16), generator=gen, requires_grad=True)
+    k, v = (torch.randn((1, 20, 2, 16), generator=gen, requires_grad=True)
+            for _ in range(2))
+    do = torch.randn((1, 20, 4, 16), generator=gen)
+    o, lse = flash_attention_fwd(q, k, v)
+    assert not lse.requires_grad
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    qs = attention._prescale(q.detach(), 16 ** -0.5)
+    k2, v2 = repeat_kv_heads(q, k.detach(), v.detach())
+    delta = attention._delta(o.detach(), do)
+    dk_p, dv_p = attention._flash_dkdv_plain(qs, k2, v2, do, lse.detach(),
+                                             delta, True)
+    assert torch.equal(dq, attention._flash_dq_plain(
+        qs, k2, v2, do, lse.detach(), delta, True, 16 ** -0.5))
+    assert torch.equal(dk, attention._sum_kv_groups(dk_p, 2))
+    assert torch.equal(dv, attention._sum_kv_groups(dv_p, 2))
+    assert dict(_build.launches) == before
+
+
 def test_kernel_sources_carry_their_note():
     """Each CUDA source names the Pallas kernel it replaces and its
     bound; the build keys each library on its source."""
@@ -226,4 +316,4 @@ def test_kernel_sources_carry_their_note():
         assert "Bound:" in text, src.name
         assert _build._target(src.stem).name.startswith(src.stem + "-")
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
-        "flash_fwd", "paged_decode"}
+        "flash_bwd", "flash_fwd", "paged_decode"}

@@ -4,12 +4,15 @@ The same numpy inputs (``numpy.random.default_rng``) go through the JAX
 function — Pallas kernels in interpret mode, as tests/test_ops.py and
 tests/test_paged_attention.py run them — and through the port, whose CPU
 tensors take each kernel's plain PyTorch version.  Tolerances are f32
-rounding of differently ordered sums (1e-4 for attention outputs and
-lse, 1e-5 for the paged decode, 1e-6 for elementwise layers); the
-``window=1`` paged gather is exact in both.
+rounding of differently ordered sums (1e-4 for attention outputs, lse and
+gradients, 1e-5 for the paged decode, 1e-6 for elementwise layers); the
+``window=1`` paged gather is exact in both.  In bf16 the flash gradients
+are held to the reference's rounding points (see
+``test_flash_grads_bf16_match_jax``).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -78,9 +81,62 @@ def test_mha_reference_matches_jax():
     assert np.max(np.abs(got - want)) < 1e-5
 
 
+def _jax_flash_grads(q, k, v, do, causal, dtype):
+    """dq, dk, dv of ray_tpu's flash_attention (Pallas, interpret) under
+    the cotangent ``do``, as f32 numpy."""
+    def f(q_, k_, v_):
+        o = jax_attention.flash_attention(q_, k_, v_, causal=causal,
+                                          interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * do)
+
+    args = (jnp.asarray(x, dtype) for x in (q, k, v))
+    return [np.asarray(g.astype(jnp.float32))
+            for g in jax.grad(f, argnums=(0, 1, 2))(*args)]
+
+
+def _port_flash_grads(q, k, v, do, causal, dtype):
+    qt, kt, vt = (_t(x).to(dtype).requires_grad_() for x in (q, k, v))
+    o = flash_attention(qt, kt, vt, causal=causal)
+    return [g.float().numpy() for g in torch.autograd.grad(
+        o, (qt, kt, vt), _t(do).to(dtype))]
+
+
+@pytest.mark.parametrize("causal,h_kv,s", [
+    (True, 4, 128), (False, 4, 128), (True, 2, 96)])
+def test_flash_grads_match_jax(causal, h_kv, s):
+    """dq, dk, dv against jax.grad of ray_tpu's flash_attention (its
+    custom VJP: the Pallas _dkdv_kernel and _dq_kernel, interpret mode)
+    under a random cotangent, incl. GQA 4 -> 2 and a ragged length; f32,
+    within 1e-4 (observed: 1.2e-6)."""
+    q, k, v = _qkv(10, 1, s, 4, h_kv, 32)
+    do = np.random.default_rng(11).normal(size=q.shape).astype(np.float32)
+    want = _jax_flash_grads(q, k, v, do, causal, jnp.float32)
+    got = _port_flash_grads(q, k, v, do, causal, torch.float32)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        assert np.max(np.abs(g - w)) < 1e-4, name
+
+
+def test_flash_grads_bf16_match_jax():
+    """In bf16 the port rounds where the reference rounds: the pre-scaled
+    q (its scale a bf16 constant, as JAX's weak typing makes it), p
+    before dv, ds before dk and dq, dk/dv per q head before the GQA sum.
+    Each grad is within one bf16 ulp at its largest magnitude (2**-7 *
+    max|ref|), and at most 15% of its elements differ at all (observed:
+    0-7%, one ulp, from f32 sums taken in another order; a misplaced
+    rounding point shows in 60-75%)."""
+    q, k, v = _qkv(12, 1, 96, 4, 2, 32)
+    do = np.random.default_rng(13).normal(size=q.shape).astype(np.float32)
+    want = _jax_flash_grads(q, k, v, do, True, jnp.bfloat16)
+    got = _port_flash_grads(q, k, v, do, True, torch.bfloat16)
+    for name, g, w in zip("qkv", got, want):
+        assert np.max(np.abs(g - w)) <= 2.0 ** -7 * np.max(np.abs(w)), name
+        assert np.mean(g != w) <= 0.15, name
+
+
 def test_plain_flash_path_is_differentiable_on_cpu():
-    """The CPU plain path stays differentiable by autograd (the CUDA
-    kernel's backward is the next slice)."""
+    """The CPU path's backward (the plain versions of K2 and K3) gives
+    the gradients autograd takes through ``mha_reference``."""
     q, k, v = (_t(x).requires_grad_() for x in _qkv(3, 1, 70, 2, 2, 16))
     (flash_attention(q, k, v) ** 2).sum().backward()
     qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
