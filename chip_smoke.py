@@ -9,9 +9,13 @@ Phases, each fatal on failure:
 2. Build every CUDA kernel from ``ray_tpu_torch/ops/csrc`` (one ``nvcc``
    per source, in parallel); print ptxas' register and spill lines.
 3. K1 (flash-attention forward) against its plain PyTorch version at the
-   flagship shape, one non-causal and one ragged GQA shape: o within 2e-2
-   (bf16 output, f32 accumulation), lse within 1e-3 (f32).  Times of the
-   kernel, the plain version and ``scaled_dot_product_attention``.
+   flagship shape, one non-causal, one ragged GQA shape and the long
+   shape (b=2, s=2048, h=32, d=128: the heads of ``llama2_7b`` at its
+   max_seq_len): o within 2e-2 (bf16 output, f32 accumulation), lse
+   within 1e-3 (f32).  At the flagship and the long shape: every built
+   tile (BLOCK_M, BLOCK_N) held and timed the same way, the times of the
+   kernel, the plain version and ``scaled_dot_product_attention`` beside
+   the bound, and at the flagship the wrapper's host time per call.
 4. K2 and K3 (flash-attention backward: dk/dv and dq) at the same three
    shapes against the plain backward on the same inputs: each of dq, dk,
    dv within 2e-2 * max|plain| (a few bf16 ulps at the largest
@@ -29,7 +33,8 @@ Phases, each fatal on failure:
    ``ray_tpu_torch.entry.entry()`` at full width (12 layers, 4 x 512,
    bf16): finite logits, K1 launched 12 times per forward, the loss of the
    K1 path within 2e-2 of the plain-attention path; ms per forward,
-   tokens/s, peak memory.
+   tokens/s, peak memory; K1's device time per launch inside the forward
+   and the forward's device busy time, from its profile.
 7. Main path 2: 16 requests from threads through the paged decoder under
    the continuous batcher (paged_kv, prefix caching, speculative_k=3):
    every chain bitwise ``reference_decode``, K4 launched, prefix hits.
@@ -40,7 +45,7 @@ Phases, each fatal on failure:
    step's (grad_norm within 2e-2 relative, each leaf's relative L2 error
    within 5e-2); a falling, finite loss over the steps on one batch; ms
    per step, tokens/s, peak memory, the plain-attention step's time, and
-   a profile of one step.
+   a profile of one step (K1's time per launch inside it, busy time).
 
 Launch counts are set to 0 just before each main path and read just after
 it.  Prints the kernels line, then as its last line
@@ -127,15 +132,47 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+# K1's tiles (BLOCK_M, BLOCK_N), all built for d = 128.
+K1_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+
+
+def k1_work(b, s, h, causal, d=128):
+    """Bytes K1 must move (q, k, v read once, o and lse written once) and
+    its flop (4 d per (q, k) pair that the causal mask keeps)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * s * h * d * 2 + b * h * s * 4, 4 * d * pairs * b * h
+
+
+def host_ms(torch, fn, iters=200):
+    """Host time per call: the enqueue alone (no synchronize inside the
+    clock), after a warm-up."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def k1_phase(torch, dev):
+    """K1 against its plain version at four shapes (the flagship, one
+    non-causal, one ragged GQA, and the long shape: the heads of
+    LlamaConfig.llama2_7b at its max_seq_len); at the flagship and the
+    long shape also every built tile, and the times of the kernel, the
+    plain version and SDPA beside the bound."""
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.ops.layers import repeat_kv_heads
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    result = None
-    for b, s, h, h_kv, causal in ((4, 512, 6, 6, True),
-                                  (2, 256, 6, 6, False),
-                                  (2, 500, 6, 2, True)):
+    result = {"name": "K1_flash_fwd", "route": "cuda",
+              "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+              "replaces": "ray_tpu/ops/attention.py:100", "tiles": {}}
+    for b, s, h, h_kv, causal, what in (
+            (4, 512, 6, 6, True, "flagship"), (2, 256, 6, 6, False, None),
+            (2, 500, 6, 2, True, None), (2, 2048, 32, 32, True, "long")):
         q, k, v = (torch.randn((b, s, hh, 128), generator=gen, device=dev)
                    .to(torch.bfloat16) for hh in (h, h_kv, h_kv))
         o, lse = attention.flash_attention_fwd(q, k, v, causal=causal)
@@ -149,33 +186,54 @@ def k1_phase(torch, dev):
             f"o max_abs_err={err_o} (<=2e-2) lse max_abs_err={err_l} "
             f"(<=1e-3)")
         check(err_o <= 2e-2 and err_l <= 1e-3, "K1 disagrees with plain")
-        if result is None:   # the flagship shape: time it
-            def run():
-                return attention.flash_attention_fwd(q, k, v, causal=causal)
+        if what is None:
+            continue
+        sfx = "" if what == "flagship" else "_long"
 
-            ms = device_ms(torch, run, 20, kernel="flash_fwd_kernel")
-            call_ms = cuda_ms(run, 50)
-            plain_ms = device_ms(torch, lambda: attention._flash_fwd_plain(
-                qs, k2, v2, causal), 3)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_ms = device_ms(torch, lambda: sdpa(qt, kt, vt,
-                                                   is_causal=causal), 20)
-            nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
-            pairs = s * (s + 1) // 2 if causal else s * s
-            flops = 4 * 128 * pairs * b * h
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-            log(f"K1 flagship shape (device time per call): kernel {ms} ms, "
-                f"plain {plain_ms} ms, sdpa {lib_ms} ms, bound {b_ms} ms "
-                f"({b_by}: {nbytes} B, {flops} flop); wrapper call "
-                f"{call_ms} ms")
-            result = {"name": "K1_flash_fwd", "route": "cuda",
-                      "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-                      "replaces": "ray_tpu/ops/attention.py:100",
-                      "max_abs_err": err_o, "lse_max_abs_err": err_l,
-                      "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": lib_ms}
+        def run():
+            return attention.flash_attention_fwd(q, k, v, causal=causal)
+
+        ms = device_ms(torch, run, 20, kernel="flash_fwd_kernel")
+        plain_ms = device_ms(torch, lambda: attention._flash_fwd_plain(
+            qs, k2, v2, causal), 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = device_ms(torch, lambda: sdpa(qt, kt, vt,
+                                               is_causal=causal), 20)
+        nbytes, flops = k1_work(b, s, h, causal)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"K1 {what} shape b={b} s={s} h={h} (device time per call): "
+            f"kernel {ms} ms ({flops / ms / 1e9} TFLOP/s), plain "
+            f"{plain_ms} ms, sdpa {lib_ms} ms, bound {b_ms} ms ({b_by}: "
+            f"{nbytes} B, {flops} flop)")
+        result.update({"max_abs_err" + sfx: err_o,
+                       "lse_max_abs_err" + sfx: err_l, "ms" + sfx: ms,
+                       "plain_ms" + sfx: plain_ms, "bound_ms" + sfx: b_ms,
+                       "bound_by" + sfx: b_by, "library_ms" + sfx: lib_ms})
+        if what == "flagship":
+            result["call_ms"] = cuda_ms(run, 50)
+            result["wrapper_host_ms"] = host_ms(torch, run)
+            result["kernel_wrapper_host_ms"] = host_ms(
+                torch, lambda: attention._flash_fwd_cuda(qs, k, v, causal))
+            log(f"K1 wrapper at the flagship shape: call {result['call_ms']}"
+                f" ms (CUDA events, back to back); host time per call "
+                f"{result['wrapper_host_ms']} ms (flash_attention_fwd), "
+                f"{result['kernel_wrapper_host_ms']} ms (_flash_fwd_cuda)")
+        # Every built tile (BLOCK_M, BLOCK_N) at this shape: right, and
+        # how fast (the kernel's own choice is one of them).
+        for tile in K1_TILES:
+            o_t, lse_t = attention._flash_fwd_cuda(qs, k, v, causal, tile)
+            torch.cuda.synchronize()
+            e_o = float((o_t.float() - o_p.float()).abs().max())
+            e_l = float((lse_t - lse_p).abs().max())
+            check(e_o <= 2e-2 and e_l <= 1e-3, f"K1 tile {tile} disagrees "
+                  f"with plain")
+            t_ms = device_ms(torch, lambda: attention._flash_fwd_cuda(
+                qs, k, v, causal, tile), 20, kernel="flash_fwd_kernel")
+            name = f"{tile[0]}x{tile[1]}"
+            result["tiles"].setdefault(name, {})["ms" + sfx] = t_ms
+            log(f"K1 {what} shape, tile {name}: {t_ms} ms, o err {e_o}, "
+                f"lse err {e_l}")
     return result
 
 
@@ -432,8 +490,20 @@ def llama_phase(torch):
     log(f"flagship forward with plain mha_reference attention: "
         f"{dt_ref * 1e3} ms per forward")
     with torch.no_grad():
-        profile_run(torch, lambda: fn(params, tokens), "forward")
-    return launches
+        busy = profile_run(torch, lambda: fn(params, tokens), "forward")
+    return launches, k1_in_path(busy, first, "forward")
+
+
+def k1_in_path(busy, per_run, what):
+    """K1's device ms per launch inside a profiled main path, and the
+    path's device busy ms per run."""
+    k1_us = sum(us for name, us in busy.items() if "flash_fwd_kernel" in name)
+    out = {f"ms_in_{what}": k1_us / per_run / 1e3,
+           f"{what}_busy_ms": sum(busy.values()) / 1e3}
+    log(f"K1 inside the {what}: {out[f'ms_in_{what}']} ms per launch "
+        f"({per_run} launches per {what}); {what} device busy "
+        f"{out[f'{what}_busy_ms']} ms")
+    return out
 
 
 def profile_run(torch, run, what, reps=3, top=10):
@@ -442,14 +512,13 @@ def profile_run(torch, run, what, reps=3, top=10):
     device's idle share (the profiler's own host cost included)."""
     busy, wall_us = _profile(torch, run, reps)
     total = sum(busy.values())
-    if not total:
-        log(f"{what} profile: device time not measured (no CUDA events)")
-        return
+    check(total > 0, f"{what} profile: the profiler recorded no device time")
     log(f"{what} profile (per {what}, {reps} runs): device busy "
         f"{total} us of {wall_us} us wall, idle share "
         f"{1 - total / wall_us}, {len(busy)} kernel names")
     for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us} us ({us / total:.3f} of busy)  {name[:100]}")
+    return busy
 
 
 def train_phase(torch, n=8):
@@ -532,8 +601,8 @@ def train_phase(torch, n=8):
     torch.cuda.synchronize()
     log(f"flagship train step with plain mha_reference attention: "
         f"{(time.perf_counter() - t0) / n * 1e3} ms per step")
-    profile_run(torch, lambda: step(state, batch), "step", top=12)
-    return dict(zip(keys, launches))
+    busy = profile_run(torch, lambda: step(state, batch), "step", top=12)
+    return dict(zip(keys, launches)), k1_in_path(busy, 2 * L, "step")
 
 
 def serve_phase(torch):
@@ -614,9 +683,10 @@ def main():
     k1 = k1_phase(torch, dev)
     k2, k3 = k23_phase(torch, dev)
     k4 = k4_phase(torch, dev)
-    k1["launches"] = llama_phase(torch)
+    k1["launches"], in_forward = llama_phase(torch)
     k4["launches"] = serve_phase(torch)
-    train = train_phase(torch)
+    train, in_step = train_phase(torch)
+    k1.update(in_forward, **in_step)
     k2["launches"] = train["flash_dkdv"]
     k3["launches"] = train["flash_dq"]
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds.  Libraries land
 in ``build/ray_tpu_torch_kernels/`` at the repository root (git-ignored),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  Nothing is built at import: the first
+named by a hash of the source, every ``csrc/*.cuh`` header a source may
+include, and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  Nothing is built at import: the first
 launch builds what it needs, and ``build()`` builds every kernel at once,
 one ``nvcc`` per source, all started together.
 
@@ -24,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -37,6 +38,7 @@ launches: "collections.Counter[str]" = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -53,9 +55,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
@@ -103,10 +107,15 @@ def library(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """C launcher ``symbol`` of kernel ``name``, returning an int error
     code.  Pointers (and the stream) must be ``c_void_p`` in ``argtypes``:
-    ctypes would pass a bare Python int as a 32-bit int and cut it."""
-    fn = getattr(library(name), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    ctypes would pass a bare Python int as a 32-bit int and cut it.  The
+    configured function is cached per ``(name, symbol)``: ``argtypes``
+    are set once, on the first call."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[(name, symbol)] = fn
     return fn
 
 

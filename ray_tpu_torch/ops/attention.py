@@ -26,6 +26,7 @@ run, and what they do not take raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -38,8 +39,14 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _KERNEL = "flash_fwd"
 _BWD_LIB = "flash_bwd"
-# The plain version's kv block (the kernel's tile width).
+# The plain versions' kv blocks: K1's BLOCK_N (p is rounded to bf16
+# relative to the running max, so the plain forward takes its max over the
+# same columns), and K2's/K3's tile width.
+_FWD_BLOCK_N = 128
 _PLAIN_BLOCK_K = 64
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P] * 5 + [_I] * 7 + [_P]
+_FWD_TILED_ARGS = [_P] * 5 + [_I] * 9 + [_P]
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,8 +71,14 @@ def _prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
     bits as the reference's ``(q * c).astype(q.dtype)`` (attention.py:321):
     there the Python float ``c`` is weakly typed and becomes a constant of
     q's dtype before the product, so it is rounded to q's dtype here too."""
-    c = float(torch.tensor(sm_scale * _LOG2E, dtype=q.dtype))  # host only
-    return (q * c).to(q.dtype)
+    return (q * _prescale_const(sm_scale, q.dtype)).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _prescale_const(sm_scale: float, dtype: torch.dtype) -> float:
+    """``sm_scale*log2(e)`` rounded to ``dtype`` (a host tensor, once per
+    scale and dtype)."""
+    return float(torch.tensor(sm_scale * _LOG2E, dtype=dtype))
 
 
 def _flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -83,8 +96,8 @@ def _flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    device=qs.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qs.device)
-    for k0 in range(0, sk, _PLAIN_BLOCK_K):
-        k1 = min(k0 + _PLAIN_BLOCK_K, sk)
+    for k0 in range(0, sk, _FWD_BLOCK_N):
+        k1 = min(k0 + _FWD_BLOCK_N, sk)
         s = qf @ kf[:, :, k0:k1].transpose(-1, -2)           # (b, h, sq, bk)
         if causal:
             cols = torch.arange(k0, k1, device=qs.device)[None, :]
@@ -192,21 +205,27 @@ def _check_cuda_inputs(q, k, v):
 
 
 def _flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    causal: bool, tile: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream.  k/v keep their own (GQA) head
-    count: the kernel maps each q head to its kv head."""
+    count: the kernel maps each q head to its kv head.  ``tile`` =
+    (BLOCK_M, BLOCK_N) overrides the kernel's own choice, for measuring
+    the tiles against each other (``flash_fwd.cu`` lists those built)."""
     _check_cuda_inputs(qs, k, v)
     b, sq, h, d = qs.shape
     o = torch.empty_like(qs)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
-    fn = _build.function(
-        _KERNEL, "rtt_flash_fwd_bf16",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d, int(causal))
+    if tile is None:
+        fn = _build.function(_KERNEL, "rtt_flash_fwd_bf16", _FWD_ARGS)
+    else:
+        fn = _build.function(_KERNEL, "rtt_flash_fwd_bf16_tiled",
+                             _FWD_TILED_ARGS)
+        args += tuple(tile)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
-        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
-                 int(causal), stream)
+        err = fn(*args, stream)
     _build.launches[_KERNEL] += 1
     _build.check_launch(_KERNEL, err)
     return o, lse

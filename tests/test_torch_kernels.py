@@ -9,7 +9,9 @@ worker collects the same tests) and skips without one.  On the card:
 
 Shapes are chip_smoke.py's: K1 at the flagship shape (b=4, s=512, h=6,
 d=128, bf16, causal), one non-causal and one ragged GQA case, o within
-2e-2 (bf16 output, f32 accumulation) and lse within 1e-3 (f32); K2 and
+2e-2 (bf16 output, f32 accumulation) and lse within 1e-3 (f32), and at
+the edges of its tiling (lengths 1, 65, 127, 129, MQA, d = 32 and 64,
+sq != sk, every built tile, the long shape of llama2_7b's heads); K2 and
 K3 at the same three shapes, dq, dk and dv within 2e-2 * max|plain| of
 the plain backward on the same inputs (a few bf16 ulps at the largest
 magnitude); K4 exact at the serving shape (f32, h=1, d=32, block 8,
@@ -17,6 +19,7 @@ window=1) and each element within 1e-3 + 1e-2 * |plain| at a general
 bf16 shape.
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -70,6 +73,42 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, h_kv, causal):
     assert o.dtype == torch.bfloat16 and lse.shape == (b, h, s)
     assert float((o.float() - o_p.float()).abs().max()) <= 2e-2
     assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+def _check_flash_kernel(dev, b, sq, sk, h, h_kv, d, causal, tile=None):
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk)
+    q = _bf16(gen, (b, sq, h, d), dev)
+    k = _bf16(gen, (b, sk, h_kv, d), dev)
+    v = _bf16(gen, (b, sk, h_kv, d), dev)
+    qs = attention._prescale(q, d ** -0.5)
+    o, lse = attention._flash_fwd_cuda(qs, k, v, causal, tile)
+    k2, v2 = repeat_kv_heads(q, k, v)
+    o_p, lse_p = attention._flash_fwd_plain(qs, k2, v2, causal)
+    torch.cuda.synchronize()
+    assert o.shape == (b, sq, h, d) and lse.shape == (b, h, sq)
+    assert float((o.float() - o_p.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,causal", [
+    (2, 1, 1, 4, 4, 128, True), (2, 65, 65, 4, 4, 128, True),
+    (2, 127, 127, 4, 4, 128, True), (2, 129, 129, 4, 4, 128, True),
+    (2, 300, 300, 8, 1, 128, True),                      # MQA
+    (2, 200, 200, 4, 2, 32, True), (2, 200, 200, 4, 2, 64, False),
+    (2, 100, 300, 4, 4, 128, False), (2, 300, 100, 4, 4, 128, False),
+    (2, 300, 100, 4, 4, 128, True),
+    (1, 2048, 2048, 32, 32, 128, True)])                 # llama2_7b's heads
+def test_flash_kernel_edges_match_plain(cuda, b, sq, sk, h, h_kv, d, causal):
+    _check_flash_kernel(cuda, b, sq, sk, h, h_kv, d, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64),
+                                  (128, 128)])
+def test_flash_kernel_every_tile_matches_plain(cuda, tile):
+    _check_flash_kernel(cuda, 2, 500, 500, 6, 2, 128, True, tile)
+    _check_flash_kernel(cuda, 2, 256, 256, 6, 6, 128, False, tile)
 
 
 @pytest.mark.gpu
@@ -305,6 +344,51 @@ def test_cpu_backward_runs_the_plain_kernels_without_launching():
     assert torch.equal(dk, attention._sum_kv_groups(dk_p, 2))
     assert torch.equal(dv, attention._sum_kv_groups(dv_p, 2))
     assert dict(_build.launches) == before
+
+
+def test_build_target_follows_the_headers(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header alone renames (so rebuilds) every
+    kernel library, as a source may include it."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert first == _build._target("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build._target("k") != first
+    assert _build._target("k").name.startswith("k-")
+
+
+def test_build_function_configures_each_symbol_once(monkeypatch):
+    """function() sets restype/argtypes once per (library, symbol) and
+    hands back the same configured function after that."""
+    looked_up = []
+
+    class FakeLib:
+        def __getattr__(self, symbol):
+            looked_up.append(symbol)
+            return type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "_libs", {"fake": FakeLib()})
+    monkeypatch.setattr(_build, "_fns", {})
+    args = [ctypes.c_void_p, ctypes.c_int]
+    fn = _build.function("fake", "rtt_a", args)
+    assert fn.argtypes == args and fn.restype is ctypes.c_int
+    assert _build.function("fake", "rtt_a", args) is fn
+    assert _build.function("fake", "rtt_b", args) is not fn
+    assert looked_up == ["rtt_a", "rtt_b"]
+
+
+def test_prescale_constant_is_cached():
+    """The bf16-rounded pre-scale constant is computed once per (sm_scale,
+    dtype), and the product keeps the reference's bits."""
+    q = torch.randn(1, 4, 2, 16).to(torch.bfloat16)
+    attention._prescale(q, 0.25)
+    hits = attention._prescale_const.cache_info().hits
+    got = attention._prescale(q, 0.25)
+    assert attention._prescale_const.cache_info().hits == hits + 1
+    c = float(torch.tensor(0.25 * attention._LOG2E, dtype=torch.bfloat16))
+    assert torch.equal(got, (q * c).to(torch.bfloat16))
 
 
 def test_kernel_sources_carry_their_note():
