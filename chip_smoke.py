@@ -12,10 +12,9 @@ Phases, each fatal on failure:
    flagship shape, one non-causal, one ragged GQA shape and the long
    shape (b=2, s=2048, h=32, d=128: the heads of ``llama2_7b`` at its
    max_seq_len): o within 2e-2 (bf16 output, f32 accumulation), lse
-   within 1e-3 (f32).  At the flagship and the long shape: every built
-   tile (BLOCK_M, BLOCK_N) held and timed the same way, the times of the
-   kernel, the plain version and ``scaled_dot_product_attention`` beside
-   the bound, and at the flagship the wrapper's host time per call.
+   within 1e-3 (f32).  At the flagship and the long shape: the times of
+   the kernel, the plain version and ``scaled_dot_product_attention``
+   beside the bound, and at the flagship the wrapper's host time per call.
 4. K2 and K3 (flash-attention backward: dk/dv and dq) at the same three
    shapes against the plain backward on the same inputs: each of dq, dk,
    dv within 2e-2 * max|plain| (a few bf16 ulps at the largest
@@ -132,10 +131,6 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-# K1's tiles (BLOCK_M, BLOCK_N), all built for d = 128.
-K1_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
-
-
 def k1_work(b, s, h, causal, d=128):
     """Bytes K1 must move (q, k, v read once, o and lse written once) and
     its flop (4 d per (q, k) pair that the causal mask keeps)."""
@@ -161,15 +156,15 @@ def k1_phase(torch, dev):
     """K1 against its plain version at four shapes (the flagship, one
     non-causal, one ragged GQA, and the long shape: the heads of
     LlamaConfig.llama2_7b at its max_seq_len); at the flagship and the
-    long shape also every built tile, and the times of the kernel, the
-    plain version and SDPA beside the bound."""
+    long shape also the times of the kernel, the plain version and SDPA
+    beside the bound."""
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.ops.layers import repeat_kv_heads
 
     gen = torch.Generator(device=dev).manual_seed(0)
     result = {"name": "K1_flash_fwd", "route": "cuda",
               "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-              "replaces": "ray_tpu/ops/attention.py:100", "tiles": {}}
+              "replaces": "ray_tpu/ops/attention.py:100"}
     for b, s, h, h_kv, causal, what in (
             (4, 512, 6, 6, True, "flagship"), (2, 256, 6, 6, False, None),
             (2, 500, 6, 2, True, None), (2, 2048, 32, 32, True, "long")):
@@ -219,21 +214,6 @@ def k1_phase(torch, dev):
                 f" ms (CUDA events, back to back); host time per call "
                 f"{result['wrapper_host_ms']} ms (flash_attention_fwd), "
                 f"{result['kernel_wrapper_host_ms']} ms (_flash_fwd_cuda)")
-        # Every built tile (BLOCK_M, BLOCK_N) at this shape: right, and
-        # how fast (the kernel's own choice is one of them).
-        for tile in K1_TILES:
-            o_t, lse_t = attention._flash_fwd_cuda(qs, k, v, causal, tile)
-            torch.cuda.synchronize()
-            e_o = float((o_t.float() - o_p.float()).abs().max())
-            e_l = float((lse_t - lse_p).abs().max())
-            check(e_o <= 2e-2 and e_l <= 1e-3, f"K1 tile {tile} disagrees "
-                  f"with plain")
-            t_ms = device_ms(torch, lambda: attention._flash_fwd_cuda(
-                qs, k, v, causal, tile), 20, kernel="flash_fwd_kernel")
-            name = f"{tile[0]}x{tile[1]}"
-            result["tiles"].setdefault(name, {})["ms" + sfx] = t_ms
-            log(f"K1 {what} shape, tile {name}: {t_ms} ms, o err {e_o}, "
-                f"lse err {e_l}")
     return result
 
 

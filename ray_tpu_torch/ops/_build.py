@@ -38,7 +38,7 @@ launches: "collections.Counter[str]" = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_fns: Dict[Tuple[str, str, tuple], ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -108,14 +108,15 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """C launcher ``symbol`` of kernel ``name``, returning an int error
     code.  Pointers (and the stream) must be ``c_void_p`` in ``argtypes``:
     ctypes would pass a bare Python int as a 32-bit int and cut it.  The
-    configured function is cached per ``(name, symbol)``: ``argtypes``
-    are set once, on the first call."""
-    fn = _fns.get((name, symbol))
+    configured function is cached per ``(name, symbol, argtypes)``, each
+    its own function object, so no caller changes another's signature."""
+    key = (name, symbol, tuple(argtypes))
+    fn = _fns.get(key)
     if fn is None:
-        fn = getattr(library(name), symbol)
+        fn = library(name)[symbol]  # a new object; getattr would share one
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        _fns[(name, symbol)] = fn
+        _fns[key] = fn
     return fn
 
 

@@ -46,7 +46,6 @@ _FWD_BLOCK_N = 128
 _PLAIN_BLOCK_K = 64
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 5 + [_I] * 7 + [_P]
-_FWD_TILED_ARGS = [_P] * 5 + [_I] * 9 + [_P]
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -205,27 +204,19 @@ def _check_cuda_inputs(q, k, v):
 
 
 def _flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, tile: Optional[Tuple[int, int]] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream.  k/v keep their own (GQA) head
-    count: the kernel maps each q head to its kv head.  ``tile`` =
-    (BLOCK_M, BLOCK_N) overrides the kernel's own choice, for measuring
-    the tiles against each other (``flash_fwd.cu`` lists those built)."""
+    count: the kernel maps each q head to its kv head."""
     _check_cuda_inputs(qs, k, v)
     b, sq, h, d = qs.shape
     o = torch.empty_like(qs)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
-    args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d, int(causal))
-    if tile is None:
-        fn = _build.function(_KERNEL, "rtt_flash_fwd_bf16", _FWD_ARGS)
-    else:
-        fn = _build.function(_KERNEL, "rtt_flash_fwd_bf16_tiled",
-                             _FWD_TILED_ARGS)
-        args += tuple(tile)
+    fn = _build.function(_KERNEL, "rtt_flash_fwd_bf16", _FWD_ARGS)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
-        err = fn(*args, stream)
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+                 int(causal), stream)
     _build.launches[_KERNEL] += 1
     _build.check_launch(_KERNEL, err)
     return o, lse

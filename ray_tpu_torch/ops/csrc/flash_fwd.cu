@@ -20,9 +20,9 @@
 //
 // Design:
 // - Warp specialisation.  One producer warpgroup (a single thread of it
-//   issues every load) and BLOCK_M / 64 consumer warpgroups, each owning 64
-//   query rows.  setmaxnreg hands the producer's registers to the
-//   consumers.
+//   issues every load) and two consumer warpgroups, each owning 64 of the
+//   block's 128 query rows.  setmaxnreg hands the producer's registers to
+//   the consumers.
 // - TMA.  The producer loads the Q tile once and keeps a ring of STAGES K/V
 //   tiles full ahead of the consumers (cp.async.bulk.tensor on rank-4 maps
 //   of (b, s, h, d), 128-byte swizzle; 64-byte for d = 32), so copies
@@ -31,19 +31,20 @@
 //   mbarrier that every consumer thread arrives on.  No __syncthreads()
 //   after the barriers are set up.  TMA zero-fills positions past s; the
 //   kernel masks those columns to NEG_INF and stores no row past sq.
-// - wgmma for both products.  S = Q K^T is m64nBLOCK_Nk16 with Q and K
-//   K-major from shared memory; O += P V takes P from registers (the f32
+// - wgmma for both products.  S = Q K^T is m64n128k16 with Q and K K-major
+//   from shared memory; O += P V takes P from registers (the f32
 //   accumulator of S packs pairwise into the bf16 A fragments) and V
 //   through an MN-major (transposed) descriptor.  Row max and row sum are
 //   quad reductions, as the accumulator rows are warp*16 + lane/4 (+8).
 //   S_j is issued with P_{j-1} V_{j-1}, so a warpgroup's softmax runs while
 //   its previous P V is on the tensor cores, and the two consumer
 //   warpgroups take turns to issue (named barriers).
-// - Block order.  (batch, head) pairs go in chunks whose K and V fit in a
-//   third of L2, so the blocks in flight re-read K/V from L2 and not from
-//   HBM; inside a chunk the heaviest causal q tiles go first.
-// - Tiles by measurement (chip_smoke's K1 sweep): 128 x 128 is the fastest
-//   at both shapes; one block per tile.
+// - Block order.  One block per 128-row q tile.  (batch, head) pairs go in
+//   chunks whose K and V fit in a third of L2, so the blocks in flight
+//   re-read K/V from L2 and not from HBM; inside a chunk the heaviest
+//   causal q tiles go first.
+// - Tiles: 128 q rows x 128 kv columns, the fastest of the four tiles of
+//   64 or 128 rows by 64 or 128 columns at both shapes (PERF.md).
 //
 // Layout: q, o are (b, sq, h, d) and k, v are (b, sk, h_kv, d), contiguous;
 // GQA maps q head -> kv head h / (h / h_kv).  lse is (b, h, sq) f32.  Any
@@ -58,42 +59,25 @@ namespace {
 using namespace rtt;
 
 constexpr float NEG_INF = -1e30f;
+constexpr int BM = 128;  // q rows of a block: two consumer warpgroups
+constexpr int BN = 128;  // kv columns of a tile
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
 
-// Dynamic shared memory of a block: 1024 bytes of slack to align the
-// tiles, the Q tile, `stages` K and V tiles, then the mbarriers q_full,
-// q_empty and per stage k_full, v_full, empty.
-constexpr int smem_bytes(int q_bytes, int kv_bytes, int stages) {
-  return 1024 + q_bytes + 2 * stages * kv_bytes + 8 * (2 + 3 * stages);
-}
-
-template <int D, int BM, int BN>
+template <int D>
 struct Cfg {
-  static constexpr int WG = BM / 64;              // consumer warpgroups
-  static constexpr int THREADS = 128 * (WG + 1);  // + the producer's
   static constexpr int PW = D < 64 ? D : 64;      // panel width, elements
   static constexpr int ROWB = PW * 2;             // panel row = swizzle span
   static constexpr int NP = D / PW;               // panels per tile
   static constexpr uint32_t LAYOUT = swizzle_layout(ROWB);
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;     // one K (or V) stage
-  // Two blocks an SM where two fit (one consumer warpgroup only); else
-  // one block with the deepest ring that fits in 227 KB.
-  static constexpr int MIN_BLOCKS =
-      WG == 1 && 2 * (smem_bytes(Q_BYTES, KV_BYTES, 2) + 1024) <= 233472
-          ? 2 : 1;
-  static constexpr int STAGES =
-      MIN_BLOCKS == 1 && smem_bytes(Q_BYTES, KV_BYTES, 3) <= 232448 ? 3 : 2;
-  static constexpr int SMEM = smem_bytes(Q_BYTES, KV_BYTES, STAGES);
-  // Registers: ptxas holds the whole kernel to the launch bound, 65536 /
-  // (THREADS * MIN_BLOCKS) a thread (168 for three warpgroups, 128 for two
-  // warpgroups twice an SM); then the producer drops to 24 and the
-  // consumers take what it frees.  One consumer warpgroup once an SM is
-  // launched with up to 255, without rebalancing.
-  static constexpr bool REBALANCE = WG == 2 || MIN_BLOCKS == 2;
-  static constexpr int CONSUMER_REGS = WG == 1 ? 232 : 240;
-  // Two consumer warpgroups take turns on the tensor cores (named
-  // barriers 1 and 2): one's products run while the other's softmax does.
-  static constexpr bool PINGPONG = WG == 2;
+  // Dynamic shared memory: 1024 bytes of slack to align the tiles, the Q
+  // tile, STAGES K and V tiles, then the mbarriers q_full, q_empty and per
+  // stage k_full, v_full, empty.
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (2 + 3 * STAGES);
+  static_assert(SMEM <= 232448, "more than an SM's 227 KB");
 };
 
 // Block-tile t of the order the blocks take: the (batch, head) pairs in
@@ -120,7 +104,6 @@ struct Tile {
 // Register i is in row (i / 2) % 2 of the two; each row lives in the 4
 // lanes of a quad.  Two partial maxima and sums a row shorten the
 // dependency chains.
-template <int BN>
 __device__ __forceinline__ void softmax_step(float (&sc)[BN / 2], int k0,
                                              int r0, int r1, int t4,
                                              int row_lo, int sk, int causal,
@@ -161,7 +144,6 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BN / 2], int k0,
 
 // P in bf16, as the A fragments of m64nDk16: k-step kk covers the score
 // columns 16 kk .. 16 kk + 15, i.e. registers 8 kk .. 8 kk + 7.
-template <int BN>
 __device__ __forceinline__ void pack_p(const float (&sc)[BN / 2],
                                        uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
@@ -173,16 +155,14 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BN / 2],
   }
 }
 
-template <int D, int BM, int BN>
-__global__ void __launch_bounds__(Cfg<D, BM, BN>::THREADS,
-                                  Cfg<D, BM, BN>::MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  uint16_t* __restrict__ o, float* __restrict__ lse, int B,
                  int H, int Hkv, int sq, int sk, int causal, int chunk) {
-  using C = Cfg<D, BM, BN>;
-  constexpr int STAGES = C::STAGES;
+  using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + C::Q_BYTES;                 // STAGES K tiles
@@ -202,27 +182,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    mbar_init(q_empty, C::WG * 128);
+    mbar_init(q_empty, 2 * 128);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(empty + 8 * s, C::WG * 128);
+      mbar_init(empty + 8 * s, 2 * 128);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
   // A block walks block-tiles blockIdx.x, + gridDim.x, ...  The launcher
-  // gives every tile its own block, so each block takes one: a persistent
-  // grid measured slower (it breaks the L2 chunks).  The loop and q_empty,
-  // which would hand the Q buffer to a block's next tile, stay because
-  // ptxas fits this form in 168 registers; the same code without the loop
-  // went to the stack and serialised its wgmma.
+  // gives every tile its own block, so the loop runs once.  It stays, with
+  // q_empty (which would hand the Q buffer to a next tile), because ptxas
+  // fits the kernel in 168 registers only in this form: with nvcc 12.9.86
+  // each loop-free form tried (this body with the tile loop's header
+  // replaced by t = blockIdx.x; a rewrite without q_empty, with or without
+  // `#pragma unroll 1` on the kv loop and with the tile computed after
+  // setmaxnreg) spills 208-224 bytes at d = 128 and runs 27-48% slower
+  // (PERF.md).  Try the loop-free form again with a later nvcc.
   const int wg = threadIdx.x / 128;
-  if (wg == C::WG) {
+  if (wg == 2) {
     // ---- producer warpgroup: one thread issues every TMA load ----
-    if constexpr (C::REBALANCE) setmaxnreg_dec<24>();
-    if (threadIdx.x == C::WG * 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * 128) {
       tma_prefetch(&tq);
       tma_prefetch(&tk);
       tma_prefetch(&tv);
@@ -255,21 +238,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumer warpgroup wg: query rows q0 + 64 wg .. + 63 ----
-    if constexpr (C::REBALANCE) setmaxnreg_inc<C::CONSUMER_REGS>();
+    setmaxnreg_inc<240>();
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
     const uint32_t qa = sQ + wg * 64 * C::ROWB;  // this warpgroup's Q rows
-    // Turns on the tensor cores: wait for ours before issuing products,
-    // hand over after.  Warpgroup 0 goes first.
-    auto turn_begin = [&] {
-      if constexpr (C::PINGPONG) named_bar_sync(1 + wg, 256);
-    };
+    // Turns on the tensor cores (named barriers 1 and 2): wait for ours
+    // before issuing products, hand over after; one warpgroup's products
+    // run while the other's softmax does.  Warpgroup 0 goes first.
+    auto turn_begin = [&] { named_bar_sync(1 + wg, 256); };
     auto turn_end = [&](bool last) {
-      if constexpr (C::PINGPONG)
-        if (!last) named_bar_arrive(2 - wg, 256);
+      if (!last) named_bar_arrive(2 - wg, 256);
     };
-    if constexpr (C::PINGPONG)
-      if (wg == 1) named_bar_arrive(1, 256);
+    if (wg == 1) named_bar_arrive(1, 256);
 
     float acc[D / 2];
     float sc[BN / 2];
@@ -333,11 +313,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(sc);
       if (nk == 1) mbar_arrive(q_empty);  // done with this Q tile
-      softmax_step<BN>(sc, 0, r0, r1, t4, row_lo, sk, causal, m0, m1, alpha0,
-                       alpha1, rs0, rs1);
+      softmax_step(sc, 0, r0, r1, t4, row_lo, sk, causal, m0, m1, alpha0,
+                   alpha1, rs0, rs1);
       l0 = rs0;
       l1 = rs1;
-      pack_p<BN>(sc, pa);
+      pack_p(sc, pa);
       for (int kt = 1; kt < nk; ++kt) {
         const int sj = (it + kt) % STAGES, sp = (it + kt - 1) % STAGES;
         mbar_wait(k_full + 8 * sj, ((it + kt) / STAGES) & 1);
@@ -349,15 +329,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<1>();  // S_j is in; P_{j-1} V_{j-1} may still run
         fence_regs(sc);
         if (kt == nk - 1) mbar_arrive(q_empty);
-        softmax_step<BN>(sc, kt * BN, r0, r1, t4, row_lo, sk, causal, m0, m1,
-                         alpha0, alpha1, rs0, rs1);
+        softmax_step(sc, kt * BN, r0, r1, t4, row_lo, sk, causal, m0, m1,
+                     alpha0, alpha1, rs0, rs1);
         wgmma_wait<0>();  // P_{j-1} V_{j-1} done: O and P are free again
         fence_regs(acc);
         mbar_arrive(empty + 8 * sp);
         rescale(alpha0, alpha1);
         l0 = l0 * alpha0 + rs0;
         l1 = l1 * alpha1 + rs1;
-        pack_p<BN>(sc, pa);
+        pack_p(sc, pa);
       }
       const int sl = (it + nk - 1) % STAGES;
       mbar_wait(v_full + 8 * sl, ((it + nk - 1) / STAGES) & 1);
@@ -395,18 +375,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D, int BM, int BN>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int Hkv, int sq, int sk, int causal,
            cudaStream_t st) {
-  using C = Cfg<D, BM, BN>;
+  using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   if (!encode_bshd(&tq, q, B, sq, H, D, BM, C::PW) ||
       !encode_bshd(&tk, k, B, sk, Hkv, D, BN, C::PW) ||
       !encode_bshd(&tv, v, B, sk, Hkv, D, BN, C::PW))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((sq + BM - 1) / BM) * H * B;
@@ -414,7 +394,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const long kv_bytes = 4L * sk * D;
   const int chunk = static_cast<int>(
       std::max(1L, std::min<long>(B * H, (16L << 20) / kv_bytes)));
-  flash_fwd_kernel<D, BM, BN><<<grid, C::THREADS, C::SMEM, st>>>(
+  flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, st>>>(
       tq, tk, tv, static_cast<uint16_t*>(o), static_cast<float*>(lse), B, H,
       Hkv, sq, sk, causal, chunk);
   return static_cast<int>(cudaGetLastError());
@@ -422,40 +402,21 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// K1 with an explicit tile (block_m, block_n): (128, 128) for every d, and
-// (64, 64), (64, 128), (128, 64) for d = 128, to measure the tiles against
-// each other.  Other tiles: cudaErrorInvalidValue.
-extern "C" int rtt_flash_fwd_bf16_tiled(const void* q, const void* k,
-                                        const void* v, void* o, void* lse,
-                                        int B, int H, int Hkv, int sq, int sk,
-                                        int D, int causal, int block_m,
-                                        int block_n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tile = D * 100000 + block_m * 1000 + block_n;
-#define RTT_TILE(d, bm, bn)                                                  \
-  case d * 100000 + bm * 1000 + bn:                                          \
-    return launch<d, bm, bn>(q, k, v, o, lse, B, H, Hkv, sq, sk, causal, st);
-  switch (tile) {
-    RTT_TILE(32, 128, 128)
-    RTT_TILE(64, 128, 128)
-    RTT_TILE(128, 64, 128)
-    RTT_TILE(128, 128, 128)
-    RTT_TILE(128, 64, 64)
-    RTT_TILE(128, 128, 64)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef RTT_TILE
-}
-
-// K1 with the kernel's own tile, 128 x 128 (the fastest at both measured
-// shapes: chip_smoke's K1 sweep).
 extern "C" int rtt_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int B, int H, int Hkv,
                                   int sq, int sk, int D, int causal,
                                   void* stream) {
-  return rtt_flash_fwd_bf16_tiled(q, k, v, o, lse, B, H, Hkv, sq, sk, D,
-                                  causal, 128, 128, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch<32>(q, k, v, o, lse, B, H, Hkv, sq, sk, causal, st);
+    case 64:
+      return launch<64>(q, k, v, o, lse, B, H, Hkv, sq, sk, causal, st);
+    case 128:
+      return launch<128>(q, k, v, o, lse, B, H, Hkv, sq, sk, causal, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* rtt_error_string(int err) {

@@ -176,28 +176,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulate.  The accumulator of
 // a thread (warp w of its warpgroup, lane = 4 g + t) holds, for register
 // i, row 16 w + g + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 t + (i % 2).
+// Only the forms K1 uses are written out: `ss` at N = 128 (S = Q K^T) and
+// `rs` at N = d (O += P V).
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<32> {
-  // D[64 x 32] (+)= A[64 x 16] * B[16 x 32]; A and B in shared memory,
-  // both K-major.  scale_d = 0 overwrites D.
-  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d)
-        : "memory");
-  }
   // D[64 x 32] += A[64 x 16] * B[16 x 32]; A in registers (the
   // accumulator layout packed to bf16x2), B in shared memory, MN-major.
   __device__ static __forceinline__ void rs(float (&d)[16],
@@ -220,29 +205,6 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
-  // D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B in shared memory,
-  // both K-major.  scale_d = 0 overwrites D.
-  __device__ static __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d)
-        : "memory");
-  }
   // D[64 x 64] += A[64 x 16] * B[16 x 64]; A in registers (the
   // accumulator layout packed to bf16x2), B in shared memory, MN-major.
   __device__ static __forceinline__ void rs(float (&d)[32],
