@@ -15,13 +15,15 @@ Phases, each fatal on failure:
    within 1e-3 (f32).  At the flagship and the long shape: the times of
    the kernel, the plain version and ``scaled_dot_product_attention``
    beside the bound, and at the flagship the wrapper's host time per call.
-4. K2 and K3 (flash-attention backward: dk/dv and dq) at the same three
-   shapes against the plain backward on the same inputs: each of dq, dk,
-   dv within 2e-2 * max|plain| (a few bf16 ulps at the largest
-   magnitude), and no further from an f32 ``mha_reference`` autograd
-   gradient than 2x the plain version's distance + 1e-3.  Times of K2,
-   K3, delta, the plain versions and the SDPA backward (which covers
-   K2 + K3 + delta together), and the bounds.
+4. K3 (dq, and delta = rowsum(o * do) in its prologue) then K2 (dk/dv),
+   as the backward launches them, at the same four shapes against the
+   plain backward on the same inputs: delta within 1e-5 * max|delta| of
+   the PyTorch rowsum, each of dq, dk, dv within 2e-2 * max|plain| (a few
+   bf16 ulps at the largest magnitude), and no further from an f32
+   ``mha_reference`` autograd gradient than 2x the plain version's
+   distance + 1e-3.  At the flagship and the long shape: the times of K3,
+   K2, the plain versions and the SDPA backward (which covers K2 + K3 +
+   delta together), and the bounds from ``k23_work``.
 5. K4 (paged decode attention) against its plain version: exact at the
    serving shape (f32, h=1, d=32, block 8, window=1); at a general bf16
    shape (B=8, h=6, d=128, block 16, ctx 1-1024, windows 0 and 64) each
@@ -44,7 +46,8 @@ Phases, each fatal on failure:
    step's (grad_norm within 2e-2 relative, each leaf's relative L2 error
    within 5e-2); a falling, finite loss over the steps on one batch; ms
    per step, tokens/s, peak memory, the plain-attention step's time, and
-   a profile of one step (K1's time per launch inside it, busy time).
+   a profile of one step (K1's, K2's and K3's time per launch inside it,
+   busy time).
 
 Launch counts are set to 0 just before each main path and read just after
 it.  Prints the kernels line, then as its last line
@@ -120,8 +123,12 @@ def device_ms(torch, run, reps, kernel=None):
                        f"{kernel or 'the call'}")
 
 
-def bound(nbytes, flops, peak_flops):
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+def bound(nbytes, flops, peak_flops, f32_flops=0):
+    """Least ms for the work: bytes over the memory rate or operations
+    over their peak rates (``f32_flops`` outside the tensor cores),
+    whichever is longer, and which."""
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / peak_flops + f32_flops / F32_FLOPS
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -217,37 +224,68 @@ def k1_phase(torch, dev):
     return result
 
 
+def k23_work(b, s, h, causal, d=128):
+    """Bytes and flop of the backward's kernels at a (b, s, h, d) shape
+    with as many kv heads as q heads.  K2 reads q, k, v, do, lse and delta
+    once and writes dk and dv, 8 d flop per (q, k) pair the causal mask
+    keeps (four products); K3 reads q, k, v, do and lse, writes dq and
+    delta, 6 d flop per pair (three products); its delta prologue adds
+    one read of o and 2 d f32 flop per row."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_b = b * s * h * d * 2          # each of q, k, v, o, do, dq, dk, dv
+    row_b = b * h * s * 4            # each of lse, delta
+    return {"K2": (6 * t_b + 2 * row_b, 8 * d * pairs * b * h),
+            "K3": (5 * t_b + 2 * row_b, 6 * d * pairs * b * h),
+            "delta": (t_b, 2 * d * b * h * s)}
+
+
 def k23_phase(torch, dev):
+    """K3 (dq, with delta in its prologue) then K2 (dk, dv), as the
+    backward launches them, against the plain backward at K1's four
+    shapes; at the flagship and the long shape the times of K3, K2, the
+    plain versions and the SDPA backward (which covers K2 + K3 + delta
+    together) beside the bounds."""
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.ops.layers import repeat_kv_heads
 
     gen = torch.Generator(device=dev).manual_seed(2)
     scale = 128 ** -0.5
-    result = None
-    for b, s, h, h_kv, causal in ((4, 512, 6, 6, True),
-                                  (2, 256, 6, 6, False),
-                                  (2, 500, 6, 2, True)):
+    k2 = {"name": "K2_flash_dkdv", "route": "cuda",
+          "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+          "replaces": "ray_tpu/ops/attention.py:181"}
+    k3 = {"name": "K3_flash_dq", "route": "cuda",
+          "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+          "replaces": "ray_tpu/ops/attention.py:227"}
+    for b, s, h, h_kv, causal, what in (
+            (4, 512, 6, 6, True, "flagship"), (2, 256, 6, 6, False, None),
+            (2, 500, 6, 2, True, None), (2, 2048, 32, 32, True, "long")):
         q, k, v, do = (torch.randn((b, s, hh, 128), generator=gen,
                                    device=dev).to(torch.bfloat16)
                        for hh in (h, h_kv, h_kv, h))
         qs = attention._prescale(q, scale)
         o, lse = attention._flash_fwd_cuda(qs, k, v, causal)
-        delta = attention._delta(o, do)
+        dq, delta = attention._flash_dq_cuda(qs, k, v, o, do, lse, causal,
+                                             scale)
         dk, dv = attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, causal)
-        dq = attention._flash_dq_cuda(qs, k, v, do, lse, delta, causal,
-                                      scale)
-        k2, v2 = repeat_kv_heads(q, k, v)
+        delta_p = attention._delta(o, do)
+        k2r, v2r = repeat_kv_heads(q, k, v)
         dk_p, dv_p = (attention._sum_kv_groups(x, h_kv) for x in
-                      attention._flash_dkdv_plain(qs, k2, v2, do, lse, delta,
-                                                  causal))
-        dq_p = attention._flash_dq_plain(qs, k2, v2, do, lse, delta, causal,
-                                         scale)
+                      attention._flash_dkdv_plain(qs, k2r, v2r, do, lse,
+                                                  delta_p, causal))
+        dq_p = attention._flash_dq_plain(qs, k2r, v2r, do, lse, delta_p,
+                                         causal, scale)
         # The f32 gradient of the same function, by autograd.
         qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
         of = attention.mha_reference(qf, *repeat_kv_heads(qf, kf, vf),
                                      causal=causal)
         ref = torch.autograd.grad(of, (qf, kf, vf), do.float())
+        del of
         torch.cuda.synchronize()
+        err_d = float((delta - delta_p).abs().max())
+        lim_d = 1e-5 * float(delta_p.abs().max())
+        log(f"K3 delta b={b} s={s} h={h}->{h_kv} causal={causal}: "
+            f"max_abs_err to rowsum(o*do) {err_d} (<= {lim_d})")
+        check(err_d <= lim_d, "K3's delta disagrees with rowsum(o*do)")
         errs = {}
         for name, got, plain, r in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                        (dq_p, dk_p, dv_p), ref):
@@ -263,19 +301,19 @@ def k23_phase(torch, dev):
             check(e_k <= 2 * e_p + 1e-3, f"{name} is further from the f32 "
                   f"gradient than the plain backward allows")
             errs[name] = diff
-        if result is not None:
+        del ref, qf, kf, vf
+        if what is None:
             continue
-        # The flagship shape: time it.
+        sfx = "" if what == "flagship" else "_long"
+        ms3 = device_ms(torch, lambda: attention._flash_dq_cuda(
+            qs, k, v, o, do, lse, causal, scale), 20,
+            kernel="flash_dq_kernel")
         ms2 = device_ms(torch, lambda: attention._flash_dkdv_cuda(
             qs, k, v, do, lse, delta, causal), 20, kernel="flash_dkdv_kernel")
-        ms3 = device_ms(torch, lambda: attention._flash_dq_cuda(
-            qs, k, v, do, lse, delta, causal, scale), 20,
-            kernel="flash_dq_kernel")
-        delta_ms = device_ms(torch, lambda: attention._delta(o, do), 20)
         plain2 = device_ms(torch, lambda: attention._flash_dkdv_plain(
-            qs, k2, v2, do, lse, delta, causal), 3)
+            qs, k2r, v2r, do, lse, delta_p, causal), 3)
         plain3 = device_ms(torch, lambda: attention._flash_dq_plain(
-            qs, k2, v2, do, lse, delta, causal, scale), 3)
+            qs, k2r, v2r, do, lse, delta_p, causal, scale), 3)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         ot = torch.nn.functional.scaled_dot_product_attention(
@@ -283,39 +321,31 @@ def k23_phase(torch, dev):
         dot = do.transpose(1, 2)
         lib_ms = device_ms(torch, lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), 20)
-        port_ms = ms2 + ms3 + delta_ms
-        pairs = s * (s + 1) // 2 if causal else s * s
-        q_b = q.numel() * q.element_size()           # q, do, dq
-        kv_b = k.numel() * k.element_size()          # k, v, dk, dv
-        row_b = lse.numel() * 4                      # lse, delta
-        b2 = bound(2 * q_b + 4 * kv_b + 2 * row_b, 8 * 128 * pairs * b * h,
-                   BF16_FLOPS)
-        b3 = bound(3 * q_b + 2 * kv_b + 2 * row_b, 6 * 128 * pairs * b * h,
-                   BF16_FLOPS)
-        log(f"K2/K3 flagship shape (device time per call): K2 {ms2} ms, "
-            f"K3 {ms3} ms, delta {delta_ms} ms, K2+K3+delta {port_ms} ms; "
-            f"plain K2 {plain2} ms, plain K3 {plain3} ms; SDPA backward "
-            f"(K2+K3+delta together) {lib_ms} ms; bound K2 {b2[0]} ms "
-            f"({b2[1]}: {2 * q_b + 4 * kv_b + 2 * row_b} B, "
-            f"{8 * 128 * pairs * b * h} flop), K3 {b3[0]} ms ({b3[1]}: "
-            f"{3 * q_b + 2 * kv_b + 2 * row_b} B, {6 * 128 * pairs * b * h} "
-            f"flop)")
-        joint = {"library_covers": "K2+K3+delta (SDPA backward)",
-                 "port_bwd_ms": port_ms, "delta_ms": delta_ms}
-        result = (
-            dict({"name": "K2_flash_dkdv", "route": "cuda",
-                  "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
-                  "replaces": "ray_tpu/ops/attention.py:181",
-                  "max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms2,
-                  "plain_ms": plain2, "bound_ms": b2[0], "bound_by": b2[1],
-                  "library_ms": lib_ms}, **joint),
-            dict({"name": "K3_flash_dq", "route": "cuda",
-                  "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
-                  "replaces": "ray_tpu/ops/attention.py:227",
-                  "max_abs_err": errs["dq"], "ms": ms3, "plain_ms": plain3,
-                  "bound_ms": b3[0], "bound_by": b3[1],
-                  "library_ms": lib_ms}, **joint))
-    return result
+        del ot
+        work = k23_work(b, s, h, causal)
+        b2 = bound(*work["K2"], BF16_FLOPS)
+        n3 = work["K3"][0] + work["delta"][0]
+        b3 = bound(n3, work["K3"][1], BF16_FLOPS, f32_flops=work["delta"][1])
+        port_ms = ms2 + ms3
+        log(f"K2/K3 {what} shape b={b} s={s} h={h} (device time per call): "
+            f"K3 (with delta) {ms3} ms, K2 {ms2} ms, K2+K3 {port_ms} ms "
+            f"({port_ms / lib_ms} x the SDPA backward); plain K2 {plain2} "
+            f"ms, plain K3 {plain3} ms; SDPA backward (K2+K3+delta "
+            f"together) {lib_ms} ms; bound K2 {b2[0]} ms ({b2[1]}: "
+            f"{work['K2'][0]} B, {work['K2'][1]} flop), K3 {b3[0]} ms "
+            f"({b3[1]}: {n3} B, {work['K3'][1]} flop + {work['delta'][1]} "
+            f"f32 flop)")
+        joint = {"library_covers" + sfx: "K2+K3+delta (SDPA backward)",
+                 "port_bwd_ms" + sfx: port_ms, "library_ms" + sfx: lib_ms}
+        k2.update({"max_abs_err" + sfx: max(errs["dk"], errs["dv"]),
+                   "ms" + sfx: ms2, "plain_ms" + sfx: plain2,
+                   "bound_ms" + sfx: b2[0], "bound_by" + sfx: b2[1]},
+                  **joint)
+        k3.update({"max_abs_err" + sfx: errs["dq"],
+                   "delta_max_abs_err" + sfx: err_d, "ms" + sfx: ms3,
+                   "plain_ms" + sfx: plain3, "bound_ms" + sfx: b3[0],
+                   "bound_by" + sfx: b3[1]}, **joint)
+    return k2, k3
 
 
 def _paged_inputs(torch, dev, seed, B, h, d, bs, max_ctx, dtype):
@@ -471,19 +501,23 @@ def llama_phase(torch):
         f"{dt_ref * 1e3} ms per forward")
     with torch.no_grad():
         busy = profile_run(torch, lambda: fn(params, tokens), "forward")
-    return launches, k1_in_path(busy, first, "forward")
+    return launches, kernels_in_path(busy, {"flash_fwd_kernel": first},
+                                     "forward")
 
 
-def k1_in_path(busy, per_run, what):
-    """K1's device ms per launch inside a profiled main path, and the
-    path's device busy ms per run."""
-    k1_us = sum(us for name, us in busy.items() if "flash_fwd_kernel" in name)
-    out = {f"ms_in_{what}": k1_us / per_run / 1e3,
-           f"{what}_busy_ms": sum(busy.values()) / 1e3}
-    log(f"K1 inside the {what}: {out[f'ms_in_{what}']} ms per launch "
-        f"({per_run} launches per {what}); {what} device busy "
-        f"{out[f'{what}_busy_ms']} ms")
-    return out
+def kernels_in_path(busy, per_run, what):
+    """Device ms per launch inside a profiled main path of each kernel in
+    ``per_run`` ({kernel name: launches per run}), as {kernel name:
+    {"ms_in_<what>": ms}}, and the path's device busy ms per run."""
+    out = {}
+    for kernel, n in per_run.items():
+        us = sum(t for name, t in busy.items() if kernel in name)
+        out[kernel] = {f"ms_in_{what}": us / n / 1e3}
+        log(f"{kernel} inside the {what}: {us / n / 1e3} ms per launch "
+            f"({n} launches per {what})")
+    busy_ms = sum(busy.values()) / 1e3
+    log(f"{what} device busy {busy_ms} ms")
+    return out, busy_ms
 
 
 def profile_run(torch, run, what, reps=3, top=10):
@@ -582,7 +616,9 @@ def train_phase(torch, n=8):
     log(f"flagship train step with plain mha_reference attention: "
         f"{(time.perf_counter() - t0) / n * 1e3} ms per step")
     busy = profile_run(torch, lambda: step(state, batch), "step", top=12)
-    return dict(zip(keys, launches)), k1_in_path(busy, 2 * L, "step")
+    return dict(zip(keys, launches)), kernels_in_path(
+        busy, {"flash_fwd_kernel": 2 * L, "flash_dkdv_kernel": L,
+               "flash_dq_kernel": L}, "step")
 
 
 def serve_phase(torch):
@@ -657,18 +693,19 @@ def main():
         if report.exists():
             for line in report.read_text().splitlines():
                 if "entry function" in line or "registers" in line or \
-                        "spill" in line:
+                        "spill" in line or "wgmma" in line:
                     log(f"  ptxas {lib.stem}: {line.strip()}")
 
     k1 = k1_phase(torch, dev)
     k2, k3 = k23_phase(torch, dev)
     k4 = k4_phase(torch, dev)
-    k1["launches"], in_forward = llama_phase(torch)
+    k1["launches"], (in_forward, k1["forward_busy_ms"]) = llama_phase(torch)
     k4["launches"] = serve_phase(torch)
-    train, in_step = train_phase(torch)
-    k1.update(in_forward, **in_step)
-    k2["launches"] = train["flash_dkdv"]
-    k3["launches"] = train["flash_dq"]
+    train, (in_step, step_busy) = train_phase(torch)
+    k1.update(in_forward["flash_fwd_kernel"],
+              **in_step["flash_fwd_kernel"], step_busy_ms=step_busy)
+    k2.update(in_step["flash_dkdv_kernel"], launches=train["flash_dkdv"])
+    k3.update(in_step["flash_dq_kernel"], launches=train["flash_dq"])
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,8 +11,9 @@ K1-K3 and their plain PyTorch versions (counterpart:
   ``_dq_kernel``: both recompute ``p = exp2(s - lse)`` from the saved
   log2-domain lse, round ``p`` and ``ds = p*(dp - delta)`` to the input
   dtype before the grad products, accumulate in f32, and scale dk by
-  ``ln 2`` and dq by ``sm_scale`` at the end.  ``delta = rowsum(o*do)``
-  is a PyTorch expression, as the reference leaves it to XLA.
+  ``ln 2`` and dq by ``sm_scale`` at the end.  ``delta = rowsum(o*do)``,
+  which the reference leaves to XLA, is computed in K3's prologue on the
+  card (K3 runs first and hands it to K2), and by ``_delta`` on the CPU.
 
 One ``torch.autograd.Function`` on the unscaled q (the reference's
 ``custom_vjp`` on ``_flash``) holds all three: CUDA tensors launch the
@@ -46,6 +47,8 @@ _FWD_BLOCK_N = 128
 _PLAIN_BLOCK_K = 64
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 5 + [_I] * 7 + [_P]
+_DQ_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]
+_DKDV_ARGS = [_P] * 8 + [_I] * 7 + [_P]
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -114,7 +117,8 @@ def _flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``rowsum(o*do)`` in f32, (b, h, sq): the reference computes it
-    outside its kernels (attention.py:272-274)."""
+    outside its kernels (attention.py:272-274).  The CPU path's delta and
+    the oracle of K3's prologue, which computes it on the card."""
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -222,14 +226,17 @@ def _flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _check_cuda_grad_inputs(qs, k, v, do, lse, delta):
+def _check_cuda_grad_inputs(qs, k, v, like_q, rows):
+    """``like_q``: name -> tensor that must match q (do, o); ``rows``:
+    name -> f32 (b, h, sq) tensor (lse, delta)."""
     _check_cuda_inputs(qs, k, v)
-    if do.shape != qs.shape or do.dtype != qs.dtype or \
-            do.device != qs.device or not do.is_contiguous():
-        raise ValueError(f"do must be a contiguous {qs.dtype} tensor of q's "
-                         f"shape {tuple(qs.shape)}")
+    for name, x in like_q.items():
+        if x.shape != qs.shape or x.dtype != qs.dtype or \
+                x.device != qs.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {qs.dtype} "
+                             f"tensor of q's shape {tuple(qs.shape)}")
     b, sq, h, _ = qs.shape
-    for name, x in (("lse", lse), ("delta", delta)):
+    for name, x in rows.items():
         if x.shape != (b, h, sq) or x.dtype != torch.float32 or \
                 x.device != qs.device or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 "
@@ -238,14 +245,13 @@ def _check_cuda_grad_inputs(qs, k, v, do, lse, delta):
 
 def _flash_dkdv_cuda(qs, k, v, do, lse, delta, causal
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2: dk, dv at k/v's own (GQA) head count; each block sums
-    over the q heads of its kv head."""
-    _check_cuda_grad_inputs(qs, k, v, do, lse, delta)
+    """Launch K2 (after K3, which writes ``delta``): dk, dv at k/v's own
+    (GQA) head count; each block sums over the q heads of its kv head."""
+    _check_cuda_grad_inputs(qs, k, v, {"do": do},
+                            {"lse": lse, "delta": delta})
     b, sq, h, d = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function(
-        _BWD_LIB, "rtt_flash_dkdv_bf16",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn = _build.function(_BWD_LIB, "rtt_flash_dkdv_bf16", _DKDV_ARGS)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
         err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -257,25 +263,25 @@ def _flash_dkdv_cuda(qs, k, v, do, lse, delta, causal
     return dk, dv
 
 
-def _flash_dq_cuda(qs, k, v, do, lse, delta, causal,
-                   sm_scale: float) -> torch.Tensor:
-    """Launch K3: dq (b, sq, h, d), the gradient of the unscaled q."""
-    _check_cuda_grad_inputs(qs, k, v, do, lse, delta)
+def _flash_dq_cuda(qs, k, v, o, do, lse, causal, sm_scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3, the first kernel of the backward: dq (b, sq, h, d), the
+    gradient of the unscaled q, and ``delta = rowsum(o*do)`` (b, h, sq)
+    f32, computed in its prologue, for K2."""
+    _check_cuda_grad_inputs(qs, k, v, {"o": o, "do": do}, {"lse": lse})
     b, sq, h, d = qs.shape
     dq = torch.empty_like(qs)
-    fn = _build.function(
-        _BWD_LIB, "rtt_flash_dq_bf16",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                      ctypes.c_void_p])
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
+    fn = _build.function(_BWD_LIB, "rtt_flash_dq_bf16", _DQ_ARGS)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     with torch.cuda.device(qs.device):
-        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h,
-                 k.shape[2], sq, k.shape[1], d, int(causal), sm_scale,
-                 stream)
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+                 int(causal), sm_scale, stream)
     _build.launches["flash_dq"] += 1
     _build.check_launch(_BWD_LIB, err)
-    return dq
+    return dq, delta
 
 
 class _Flash(torch.autograd.Function):
@@ -300,12 +306,12 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         qs, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = _delta(o, do)
         if qs.is_cuda:
+            dq, delta = _flash_dq_cuda(qs, k, v, o, do, lse, ctx.causal,
+                                       ctx.sm_scale)
             dk, dv = _flash_dkdv_cuda(qs, k, v, do, lse, delta, ctx.causal)
-            dq = _flash_dq_cuda(qs, k, v, do, lse, delta, ctx.causal,
-                                ctx.sm_scale)
         else:
+            delta = _delta(o, do)
             k2, v2 = repeat_kv_heads(qs, k, v)
             dk, dv = _flash_dkdv_plain(qs, k2, v2, do, lse, delta,
                                        ctx.causal)

@@ -20,6 +20,7 @@ bf16 shape.
 """
 
 import ctypes
+import importlib.util
 import os
 import subprocess
 import sys
@@ -120,64 +121,127 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
         assert _build.launches[name] == before.get(name, 0) + 1
 
 
-def _bwd_case(gen, b, s, h, h_kv, dev):
-    """Inputs of the backward kernels: pre-scaled q, k, v, do, and o/lse
-    from K1."""
-    q = _bf16(gen, (b, s, h, 128), dev)
-    k = _bf16(gen, (b, s, h_kv, 128), dev)
-    v = _bf16(gen, (b, s, h_kv, 128), dev)
-    do = _bf16(gen, (b, s, h, 128), dev)
-    return attention._prescale(q, 128 ** -0.5), k, v, do
+def _bwd_case(gen, b, sq, sk, h, h_kv, d, dev):
+    """Inputs of the backward kernels: pre-scaled q, k, v, do."""
+    q = _bf16(gen, (b, sq, h, d), dev)
+    k = _bf16(gen, (b, sk, h_kv, d), dev)
+    v = _bf16(gen, (b, sk, h_kv, d), dev)
+    do = _bf16(gen, (b, sq, h, d), dev)
+    return attention._prescale(q, d ** -0.5), k, v, do
+
+
+def _check_flash_bwd(dev, b, sq, sk, h, h_kv, d, causal, seed):
+    """K3 then K2 (as the backward launches them) against the plain
+    versions on the same inputs, o and lse from K1: dq, dk, dv within
+    2e-2 * max|plain| + 1e-5, and K3's delta within 1e-5 of ``_delta``'s
+    (relative to its largest magnitude).  The 1e-5 floor is for sk = 1:
+    a softmax over one key has no gradient in its score, so dq and dk are
+    0 up to f32 rounding (dp - delta) on both sides (observed: 6.5e-7
+    against a plain max of 2.5e-7)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qs, k, v, do = _bwd_case(gen, b, sq, sk, h, h_kv, d, dev)
+    o, lse = attention._flash_fwd_cuda(qs, k, v, causal)
+    before = dict(_build.launches)
+    dq, delta = attention._flash_dq_cuda(qs, k, v, o, do, lse, causal,
+                                         d ** -0.5)
+    dk, dv = attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, causal)
+    assert _build.launches["flash_dkdv"] == before.get("flash_dkdv", 0) + 1
+    assert _build.launches["flash_dq"] == before.get("flash_dq", 0) + 1
+    delta_p = attention._delta(o, do)
+    k2, v2 = repeat_kv_heads(qs, k, v)
+    dk_p, dv_p = (attention._sum_kv_groups(x, h_kv) for x in
+                  attention._flash_dkdv_plain(qs, k2, v2, do, lse, delta_p,
+                                              causal))
+    dq_p = attention._flash_dq_plain(qs, k2, v2, do, lse, delta_p, causal,
+                                     d ** -0.5)
+    torch.cuda.synchronize()
+    assert delta.shape == (b, h, sq) and delta.dtype == torch.float32
+    assert float((delta - delta_p).abs().max()) <= \
+        1e-5 * float(delta_p.abs().max())
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2 * float(want.float().abs().max()) + 1e-5
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,h_kv,causal", [
     (4, 512, 6, 6, True), (2, 256, 6, 6, False), (2, 500, 6, 2, True)])
 def test_flash_bwd_kernels_match_plain(cuda, b, s, h, h_kv, causal):
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    qs, k, v, do = _bwd_case(gen, b, s, h, h_kv, cuda)
-    o, lse = attention._flash_fwd_cuda(qs, k, v, causal)
-    delta = attention._delta(o, do)
-    before = dict(_build.launches)
-    dk, dv = attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, causal)
-    dq = attention._flash_dq_cuda(qs, k, v, do, lse, delta, causal,
-                                  128 ** -0.5)
-    assert _build.launches["flash_dkdv"] == before.get("flash_dkdv", 0) + 1
-    assert _build.launches["flash_dq"] == before.get("flash_dq", 0) + 1
-    k2, v2 = repeat_kv_heads(qs, k, v)
-    dk_p, dv_p = (attention._sum_kv_groups(x, h_kv) for x in
-                  attention._flash_dkdv_plain(qs, k2, v2, do, lse, delta,
-                                              causal))
-    dq_p = attention._flash_dq_plain(qs, k2, v2, do, lse, delta, causal,
-                                     128 ** -0.5)
+    _check_flash_bwd(cuda, b, s, s, h, h_kv, 128, causal, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,h_kv,d,causal", [
+    (2, 1, 1, 4, 4, 128, True), (2, 65, 65, 4, 4, 128, True),
+    (2, 127, 127, 4, 4, 128, True), (2, 129, 129, 4, 4, 128, True),
+    (2, 300, 300, 8, 1, 128, True),                      # MQA
+    (2, 200, 200, 4, 2, 32, True), (2, 200, 200, 4, 2, 64, False),
+    (2, 100, 300, 4, 4, 128, False), (2, 300, 100, 4, 4, 128, False),
+    (2, 300, 100, 4, 4, 128, True), (2, 100, 300, 4, 4, 128, True),
+    (1, 2048, 2048, 32, 32, 128, True)])                 # llama2_7b's heads
+def test_flash_bwd_kernel_edges_match_plain(cuda, b, sq, sk, h, h_kv, d,
+                                            causal):
+    _check_flash_bwd(cuda, b, sq, sk, h, h_kv, d, causal, seed=sq * 7 + sk)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_launches_k3_first_with_its_delta(cuda, monkeypatch):
+    """The backward of CUDA tensors launches K3, then K2 with K3's delta,
+    and runs no PyTorch delta chain."""
+    calls = []
+
+    def spy(name, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((name, out))
+            return out
+        return call
+
+    for name in ("_flash_dq_cuda", "_flash_dkdv_cuda", "_delta"):
+        monkeypatch.setattr(attention, name,
+                            spy(name, getattr(attention, name)))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (_bf16(gen, (2, 200, 4, 64), cuda).requires_grad_()
+               for _ in range(3))
+    do = _bf16(gen, (2, 200, 4, 64), cuda)
+    o, _ = flash_attention_fwd(q, k, v)
+    o.backward(do)
+    assert [name for name, _ in calls] == ["_flash_dq_cuda",
+                                           "_flash_dkdv_cuda"]
+    delta = calls[0][1][1]
+    want = attention._delta(o.detach(), do)
     torch.cuda.synchronize()
-    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
-        assert got.shape == want.shape and got.dtype == torch.bfloat16
-        err = float((got.float() - want.float()).abs().max())
-        assert err <= 2e-2 * float(want.float().abs().max())
+    assert float((delta - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
 
 
 @pytest.mark.gpu
 def test_flash_bwd_kernels_raise_on_what_they_do_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    qs, k, v, do = _bwd_case(gen, 1, 64, 2, 2, cuda)
+    qs, k, v, do = _bwd_case(gen, 1, 64, 64, 2, 2, 128, cuda)
+    o = torch.zeros_like(qs)
     lse = torch.zeros((1, 2, 64), device=cuda)
-    args = (qs, k, v, do, lse, lse)
     with pytest.raises(TypeError, match="bfloat16"):
         attention._flash_dkdv_cuda(qs.float(), k, v, do, lse, lse, True)
     with pytest.raises(ValueError, match="do must be"):
-        attention._flash_dq_cuda(qs, k, v, do.float(), lse, lse, True, 1.0)
+        attention._flash_dq_cuda(qs, k, v, o, do.float(), lse, True, 1.0)
+    with pytest.raises(ValueError, match="o must be"):
+        attention._flash_dq_cuda(qs, k, v, o[:, :32], do, lse, True, 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         attention._flash_dkdv_cuda(qs, k, v, do.transpose(1, 2)
                                    .contiguous().transpose(1, 2), lse, lse,
                                    True)
     with pytest.raises(ValueError, match="lse must be"):
-        attention._flash_dq_cuda(qs, k, v, do, lse[:, :, :32], lse, True,
-                                 1.0)
+        attention._flash_dq_cuda(qs, k, v, o, do, lse[:, :, :32], True, 1.0)
+    with pytest.raises(ValueError, match="delta must be"):
+        attention._flash_dkdv_cuda(qs, k, v, do, lse, lse.double(), True)
     q80 = torch.zeros((1, 64, 2, 80), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        attention._flash_dq_cuda(q80, q80, q80, q80, lse, lse, True, 1.0)
-    attention._flash_dq_cuda(*args, True, 1.0)     # what they do take runs
+        attention._flash_dq_cuda(q80, q80, q80, q80, q80, lse, True, 1.0)
+    # What they do take runs.
+    _, delta = attention._flash_dq_cuda(qs, k, v, o, do, lse, True, 1.0)
+    attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, True)
 
 
 def _paged_case(seed, B, h, d, bs, max_ctx, dtype, dev):
@@ -386,6 +450,27 @@ def test_prescale_constant_is_cached():
     assert attention._prescale_const.cache_info().hits == hits + 1
     c = float(torch.tensor(0.25 * attention._LOG2E, dtype=torch.bfloat16))
     assert torch.equal(got, (q * c).to(torch.bfloat16))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_backward_work_at_the_flagship_shape():
+    """chip_smoke's bytes and flop of K2 and K3 (each input read once,
+    each output written once; 8 d and 6 d flop per causal pair) at the
+    flagship shape are the figures PERF.md states, and K3's delta
+    prologue adds one read of o (2 d f32 flop per row)."""
+    work = _chip_smoke().k23_work(4, 512, 6, True, 128)
+    assert work["K2"] == (18_972_672, 3_227_516_928)
+    assert work["K3"] == (15_826_944, 2_420_637_696)
+    assert work["delta"] == (3_145_728, 3_145_728)
+    assert _chip_smoke().k23_work(2, 256, 6, False)["K3"][1] == \
+        6 * 128 * 256 * 256 * 2 * 6
 
 
 def test_kernel_sources_carry_their_note():
