@@ -25,11 +25,14 @@ Phases, each fatal on failure:
    K2, the plain versions and the SDPA backward (which covers K2 + K3 +
    delta together), and the bounds from ``k23_work``.
 5. K4 (paged decode attention) against its plain version: exact at the
-   serving shape (f32, h=1, d=32, block 8, window=1); at a general bf16
-   shape (B=8, h=6, d=128, block 16, ctx 1-1024, windows 0 and 64) each
-   element within 1e-3 + 1e-2 * |plain| (one bf16 ulp passes, a lost
-   page does not).  Times from the profiler's kernel records, the bound
-   from the bytes and flop these inputs need.
+   serving shape (f32, h=1, d=32, block 8, window=1), with the wrapper's
+   time per call there; at a general bf16 shape (B=8, h=6, d=128, block
+   16, ctx 1-1024, windows 0 and 64) and at two long shapes (llama2_7b's
+   heads, h=32, d=128, block 16, 2048 positions, for 4 and for 32
+   sequences) each element within 1e-3 + 1e-2 * |plain| (one bf16 ulp
+   passes, a lost page does not); at the 32-sequence shape window=1 is
+   bitwise plain and the stored rows.  Times from the profiler's kernel
+   records, the bound from the bytes and flop these inputs need.
 6. Main path 1: the flagship Llama forward through
    ``ray_tpu_torch.entry.entry()`` at full width (12 layers, 4 x 512,
    bf16): finite logits, K1 launched 12 times per forward, the loss of the
@@ -404,16 +407,19 @@ def k4_phase(torch, dev):
 
     ms = device_ms(torch, run, 50, kernel="paged_decode_kernel")
     call_ms = cuda_ms(run, 200)
+    wrapper_host_ms = host_ms(torch, run)
     plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 1), 20)
     nbytes, flops = k4_work(q, cl_np, 1, 8)
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
     log(f"K4 serving shape (device time per call): kernel {ms} ms, plain "
         f"{plain_ms} ms, bound {b_ms} ms ({b_by}: {nbytes} B, {flops} "
-        f"flop); wrapper call {call_ms} ms")
+        f"flop); wrapper call {call_ms} ms (CUDA events, back to back), "
+        f"host time per call {wrapper_host_ms} ms")
     result = {"name": "K4_paged_decode", "route": "cuda",
               "source": "ray_tpu_torch/ops/csrc/paged_decode.cu",
               "replaces": "ray_tpu/ops/paged_attention.py:85",
               "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+              "wrapper_host_ms": wrapper_host_ms,
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": None}
     # A general shape: bf16, long ragged contexts, two windows.  Each
@@ -440,7 +446,63 @@ def k4_phase(torch, dev):
             f"1e-2*|plain|; kernel {ms} ms, plain {plain_ms} ms, bound "
             f"{b_ms} ms ({b_by}: {nbytes} B, {flops} flop)")
         check(n_out == 0, f"K4 disagrees with plain at window={window}")
+        sfx = f"_general_w{window}"
+        result.update({"max_abs_err" + sfx: err, "ms" + sfx: ms,
+                       "plain_ms" + sfx: plain_ms, "bound_ms" + sfx: b_ms})
+    # The long shapes: llama2_7b's heads (h=32, d=128, bf16, vLLM's block
+    # of 16) at its max_seq_len of 2048, for 4 and for 32 sequences, made
+    # on the card (the batch shape's pool is 1 GB of bf16).
+    for B, what in ((4, "long_few"), (32, "long_batch")):
+        q, kc, vc, bt, cl = _paged_long_inputs(torch, dev, 3 + B, B)
+        cl_np = cl.cpu().numpy()
+        out = paged_attention(q, kc, vc, bt, cl)
+        ref = plain(q, kc, vc, bt, cl, 0).float()
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        n_out = int((diff > 1e-3 + 1e-2 * ref.abs()).sum())
+        del ref, diff
+        ms = device_ms(torch, lambda: paged_attention(q, kc, vc, bt, cl), 20,
+                       kernel="paged_decode")
+        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 0), 3)
+        nbytes, flops = k4_work(q, cl_np, 0, 16)
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        log(f"K4 {what} shape (bf16, B={B}, h=32, d=128, bs=16, ctx 2048, "
+            f"window=0): max_abs_err={err}, {n_out} elements outside 1e-3 + "
+            f"1e-2*|plain|; kernel {ms} ms (bound / kernel {b_ms / ms}), "
+            f"plain {plain_ms} ms, bound {b_ms} ms ({b_by}: {nbytes} B, "
+            f"{flops} flop)")
+        check(n_out == 0, f"K4 disagrees with plain at the {what} shape")
+        result.update({"max_abs_err_" + what: err, "ms_" + what: ms,
+                       "plain_ms_" + what: plain_ms,
+                       "bound_ms_" + what: b_ms, "bound_by_" + what: b_by})
+        if what == "long_batch":
+            out = paged_attention(q, kc, vc, bt, cl, window=1)
+            ref = plain(q, kc, vc, bt, cl, 1)
+            rows = vc[bt[:, -1].long(), 15]
+            torch.cuda.synchronize()
+            exact = torch.equal(out, ref) and torch.equal(out, rows)
+            log(f"K4 {what} shape, window=1: bitwise plain and the stored "
+                f"rows: {exact}")
+            check(exact, f"K4 is not exact at window=1 at the {what} shape")
+        del q, kc, vc, out
+        torch.cuda.empty_cache()
     return result
+
+
+def _paged_long_inputs(torch, dev, seed, B, h=32, d=128, bs=16, ctx=2048):
+    """q, a pool of B * ctx / bs pages with tables permuted over it, and
+    every context at ``ctx``, from a seeded generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    width = ctx // bs
+    q, kc, vc = (torch.randn(shape, generator=gen, device=dev)
+                 .to(torch.bfloat16)
+                 for shape in ((B, h, d), (B * width, bs, h, d),
+                               (B * width, bs, h, d)))
+    bt = torch.randperm(B * width, generator=gen, device=dev).view(
+        B, width).int()
+    cl = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+    return q, kc, vc, bt, cl
 
 
 def llama_phase(torch):

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's attention kernels:
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and
-// products, register rebalancing between warpgroups, and the host-side
-// encoding of TMA tensor maps.  Header-only; a kernel source includes it
+// mbarriers, TMA tensor loads, 1-D bulk copies, wgmma shared-memory
+// descriptors and products, register rebalancing between warpgroups, and
+// the host-side encoding of TMA tensor maps.  Header-only; a kernel source includes it
 // and ops/_build.py keys every library on the headers too, so an edited
 // header rebuilds what includes it.
 //
@@ -113,6 +113,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One contiguous run of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory by the bulk-copy engine (no
+// tensor map); completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses of shared memory
+// before later async-proxy (bulk copy, TMA) ones: a ring slot that was just
+// read is then safe to refill.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- warpgroups, wgmma -----------------------------------------------------

@@ -119,6 +119,10 @@ class MeshShardedDecoder:
             self._kv_cache = torch.zeros(
                 (kv_blocks, kv_block_size, 1, self._embed),
                 dtype=torch.float32, device=self._dev)
+            # _read_last's host staging buffer and zero queries, reused
+            # across steps.
+            self._stage_host: Optional[torch.Tensor] = None
+            self._zero_q: Dict[int, torch.Tensor] = {}
 
     # -- paged-mode helpers -------------------------------------------------
     def _tokens_for(self, request) -> Any:
@@ -173,23 +177,48 @@ class MeshShardedDecoder:
                            self._to_dev(np.asarray(offs, np.int64)), 0] = \
                 self._to_dev(np.stack(vals))
 
+    def _staging(self, n: int, width: int) -> torch.Tensor:
+        """The first ``n * (1 + width)`` entries of a host int32 buffer for
+        the context lengths and block tables, pinned on CUDA and kept
+        between steps (sized for MAX_BATCH requests, grown with the
+        table width)."""
+        buf = self._stage_host
+        if buf is None or buf.numel() < n * (1 + width):
+            buf = torch.empty(max(n, MAX_BATCH) * (1 + width),
+                              dtype=torch.int32)
+            if self._dev.type == "cuda":
+                buf = buf.pin_memory()
+            self._stage_host = buf
+        return buf[: n * (1 + width)]
+
     def _read_last(self, live):
         """Gather every live request's LAST value row back through the
         paged cache with K4 (``window=1``: softmax over one position is
         exactly 1.0, so the result is bitwise the stored row)."""
         eng = self._kv_engine
+        n = len(live)
         tables = [eng.block_table(s) for s in live]
         width = max(len(t) for t in tables)
-        bt = np.zeros((len(live), width), np.int32)
+        # Context lengths, then the (n, width) tables, in one host buffer
+        # and one copy.  It is rewritten on the next step only because
+        # out.cpu() below synchronises the stream, so this step's copy has
+        # read it by then.
+        staged = self._staging(n, width)
+        host = staged.numpy()
+        host[:n] = [s.state["pos"] for s in live]
+        bt = host[n:].reshape(n, width)
+        bt.fill(0)
         for i, t in enumerate(tables):
             bt[i, : len(t)] = t
-        cl = np.asarray([s.state["pos"] for s in live], np.int32)
-        q = torch.zeros((len(live), 1, self._embed), dtype=torch.float32,
-                        device=self._dev)
+        dev = staged.to(self._dev, non_blocking=True)
+        q = self._zero_q.get(n)
+        if q is None:
+            q = self._zero_q[n] = torch.zeros(
+                (n, 1, self._embed), dtype=torch.float32, device=self._dev)
         fn = paged_attention if self._use_kernel \
             else paged_attention_reference
-        out = fn(q, self._kv_cache, self._kv_cache, self._to_dev(bt),
-                 self._to_dev(cl), window=1)
+        out = fn(q, self._kv_cache, self._kv_cache,
+                 dev[n:].view(n, width), dev[:n], window=1)
         return out[:, 0, :].cpu().numpy()
 
     def _paged_step(self, slots):

@@ -16,7 +16,13 @@ K3 at the same three shapes, dq, dk and dv within 2e-2 * max|plain| of
 the plain backward on the same inputs (a few bf16 ulps at the largest
 magnitude); K4 exact at the serving shape (f32, h=1, d=32, block 8,
 window=1) and each element within 1e-3 + 1e-2 * |plain| at a general
-bf16 shape.
+bf16 shape, at f32 and bf16 with d = 32, 64, 128, 256, at the edges of
+its pages and of its split plan, with poisoned pages, and bitwise at
+window=1 at the long-batch shape (llama2_7b's heads, 32 x 2048).  The CPU
+tests pin K4's split plan, ring and lane layout, its folded pre-scale and
+the decoder's staging of tables.  The K4 card tests alone:
+
+    python -m pytest -m gpu tests/test_torch_kernels.py -k paged
 """
 
 import ctypes
@@ -34,6 +40,9 @@ from ray_tpu_torch.ops.attention import flash_attention_fwd
 from ray_tpu_torch.ops.layers import repeat_kv_heads
 from ray_tpu_torch.ops.paged_attention import (
     _paged_attention_plain, paged_attention)
+
+# The module (the package re-exports the function over its name).
+paged_mod = importlib.import_module("ray_tpu_torch.ops.paged_attention")
 
 # Tiny shapes: more intra-op threads would only contend with the test
 # files that pytest-xdist runs beside these.
@@ -244,17 +253,35 @@ def test_flash_bwd_kernels_raise_on_what_they_do_not_take(cuda):
     attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, True)
 
 
-def _paged_case(seed, B, h, d, bs, max_ctx, dtype, dev):
+def _paged_case(seed, B, h, d, bs, max_ctx, dtype, dev, cl=None, extra=0):
+    """q, a pool of B * width (+ ``extra``) pages, tables permuted over it,
+    and context lengths (random in [1, max_ctx] unless given)."""
     rng = np.random.default_rng(seed)
     width = -(-max_ctx // bs)
     nb = B * width
     q = torch.from_numpy(rng.normal(size=(B, h, d))).to(dev, dtype)
-    kc = torch.from_numpy(rng.normal(size=(nb, bs, h, d))).to(dev, dtype)
-    vc = torch.from_numpy(rng.normal(size=(nb, bs, h, d))).to(dev, dtype)
+    kc = torch.from_numpy(rng.normal(size=(nb + extra, bs, h, d))).to(dev,
+                                                                      dtype)
+    vc = torch.from_numpy(rng.normal(size=(nb + extra, bs, h, d))).to(dev,
+                                                                      dtype)
     bt = rng.permutation(nb).reshape(B, width).astype(np.int32)
-    cl = rng.integers(1, max_ctx + 1, size=B).astype(np.int32)
+    if cl is None:
+        cl = rng.integers(1, max_ctx + 1, size=B)
     return (q, kc, vc, torch.from_numpy(bt).to(dev),
-            torch.from_numpy(cl).to(dev))
+            torch.from_numpy(np.asarray(cl, np.int32)).to(dev))
+
+
+def _paged_plain(q, kc, vc, bt, cl, window):
+    return _paged_attention_plain(attention._prescale(q, q.shape[-1] ** -0.5),
+                                  kc, vc, bt, cl, window)
+
+
+def _assert_paged_close(out, plain):
+    """Each element within 1e-3 + 1e-2 * |plain|: one bf16 ulp of
+    rounding passes, a lost or repeated page does not."""
+    plain = plain.float()
+    assert bool(((out.float() - plain).abs()
+                 <= 1e-3 + 1e-2 * plain.abs()).all())
 
 
 @pytest.mark.gpu
@@ -282,6 +309,127 @@ def test_paged_kernel_general_shape(cuda, window):
     # One bf16 ulp of rounding passes; a lost or repeated page does not.
     assert bool(((out.float() - plain).abs()
                  <= 1e-3 + 1e-2 * plain.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_paged_kernel_dtypes_and_head_dims(cuda, dtype, d):
+    q, kc, vc, bt, cl = _paged_case(d, 4, 4, d, 16, 300, dtype, cuda)
+    for window in (0, 40):
+        _assert_paged_close(paged_attention(q, kc, vc, bt, cl, window=window),
+                            _paged_plain(q, kc, vc, bt, cl, window))
+    assert torch.equal(paged_attention(q, kc, vc, bt, cl, window=1),
+                       _paged_plain(q, kc, vc, bt, cl, 1))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_split_edges(cuda):
+    """Contexts at the edges of pages and of the split plan: 1, bs, bs + 1,
+    one split's length, that + 1, and the whole table; one launch a call,
+    split or not."""
+    B, h, d, bs, width = 6, 16, 128, 16, 40
+    nsplit, pps = paged_mod._split_plan(
+        B, h, width, bs, 0, paged_mod._sm_count(cuda.index))
+    assert nsplit > 1 and pps > 1
+    span = pps * bs
+    q, kc, vc, bt, cl = _paged_case(
+        5, B, h, d, bs, width * bs, torch.bfloat16, cuda,
+        cl=[1, bs, bs + 1, span, span + 1, width * bs])
+    for window in (0, 1, span, span + 1):
+        before = _build.launches["paged_decode"]
+        out = paged_attention(q, kc, vc, bt, cl, window=window)
+        assert _build.launches["paged_decode"] == before + 1
+        _assert_paged_close(out, _paged_plain(q, kc, vc, bt, cl, window))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_poisoned_pages(cuda):
+    """Table entries past the context point at a NaN page, and positions
+    past the context inside the last live page are NaN: the output is
+    finite and matches plain on the clean data."""
+    B, h, d, bs, width = 4, 8, 128, 16, 32
+    ctx = [1, 17, 250, 512]
+    q, kc, vc, bt, cl = _paged_case(6, B, h, d, bs, width * bs,
+                                    torch.bfloat16, cuda, cl=ctx, extra=1)
+    assert paged_mod._split_plan(B, h, width, bs, 0, 132)[0] > 1
+    nan_page = kc.shape[0] - 1
+    clean_k, clean_v = kc.clone(), vc.clone()
+    bad_bt = bt.clone()
+    for b, c in enumerate(ctx):
+        bad_bt[b, -(-c // bs):] = nan_page
+        last = int(bt[b, (c - 1) // bs])
+        for x in (kc, vc):
+            x[last, c % bs if c % bs else bs:] = float("nan")
+    kc[nan_page] = float("nan")
+    vc[nan_page] = float("inf")
+    for window in (0, 5):
+        out = paged_attention(q, kc, vc, bad_bt, cl, window=window)
+        assert bool(torch.isfinite(out).all())
+        _assert_paged_close(out, _paged_plain(q, clean_k, clean_v, bt, cl,
+                                              window))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_window_one_is_exact_at_the_long_batch_shape(cuda):
+    """window=1 at llama2_7b's heads (bf16, h=32, d=128, bs=16) for 32
+    sequences of 2048 positions: bitwise the stored last rows."""
+    B, h, d, bs, width = 32, 32, 128, 16, 128
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = _bf16(gen, (B, h, d), cuda)
+    kc = _bf16(gen, (B * width, bs, h, d), cuda)
+    vc = _bf16(gen, (B * width, bs, h, d), cuda)
+    bt = torch.randperm(B * width, generator=gen, device=cuda).view(
+        B, width).int()
+    cl = torch.full((B,), width * bs, dtype=torch.int32, device=cuda)
+    out = paged_attention(q, kc, vc, bt, cl, window=1)
+    assert torch.equal(out, vc[bt[:, -1].long(), bs - 1])
+
+
+@pytest.mark.gpu
+def test_paged_kernel_raises_on_what_it_does_not_take(cuda):
+    def call(q, kc, bt=None, cl=None):
+        B = q.shape[0]
+        bt = torch.zeros((B, 2), dtype=torch.int32, device=cuda) \
+            if bt is None else bt
+        cl = torch.ones(B, dtype=torch.int32, device=cuda) if cl is None \
+            else cl
+        return paged_attention(q, kc, kc, bt, cl)
+
+    def zeros(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        call(zeros(2, 2, 64, dtype=torch.float16),
+             zeros(4, 16, 2, 64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="head_dim"):       # 72 B rows
+        call(zeros(2, 2, 36), zeros(4, 16, 2, 36))
+    with pytest.raises(ValueError, match="head_dim"):       # 120 B rows
+        call(zeros(2, 2, 30, dtype=torch.float32),
+             zeros(4, 16, 2, 30, dtype=torch.float32))
+    with pytest.raises(ValueError, match="head_dim"):
+        call(zeros(2, 2, 264), zeros(4, 16, 2, 264))
+    with pytest.raises(ValueError, match="block_size"):     # ring too big
+        call(zeros(2, 2, 256, dtype=torch.float32),
+             zeros(4, 40, 2, 256, dtype=torch.float32))
+    base = zeros(2 * 2 * 64 + 1, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        call(base[1:].view(2, 2, 64), zeros(4, 16, 2, 64,
+                                            dtype=torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(zeros(2, 2, 64).transpose(0, 1), zeros(4, 16, 2, 64))
+    with pytest.raises(TypeError, match="int32"):
+        call(zeros(2, 2, 64), zeros(4, 16, 2, 64),
+             bt=torch.zeros((2, 2), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="do not fit"):
+        call(zeros(2, 2, 64), zeros(4, 16, 2, 32))
+    # What it does take runs: f32 rows of 16 B, bf16 of 16 B and d = 256.
+    for d, dtype in ((4, torch.float32), (8, torch.bfloat16),
+                     (256, torch.bfloat16)):
+        out = call(zeros(2, 2, d, dtype=dtype), zeros(4, 16, 2, d,
+                                                      dtype=dtype))
+        torch.cuda.synchronize()
+        assert out.shape == (2, 2, d) and bool((out == 0).all())
 
 
 @pytest.mark.gpu
@@ -471,6 +619,140 @@ def test_chip_smoke_backward_work_at_the_flagship_shape():
     assert work["delta"] == (3_145_728, 3_145_728)
     assert _chip_smoke().k23_work(2, 256, 6, False)["K3"][1] == \
         6 * 128 * 256 * 256 * 2 * 6
+
+
+def test_split_plan_window_one_gives_one_split():
+    for B, h, max_pages, bs in ((8, 1, 5, 8), (1, 1, 4096, 16),
+                                (32, 32, 128, 16), (1, 64, 1, 1)):
+        assert paged_mod._split_plan(B, h, max_pages, bs, 1, 132) == (1, 1)
+
+
+def test_split_plan_covers_every_live_position_once():
+    """Over random shapes, windows and contexts, the splits as the kernel
+    walks them (split s takes live pages [first + s*pps, first +
+    (s+1)*pps)) hold every live position exactly once, every split a
+    whole number of pages."""
+    rng = np.random.default_rng(11)
+    for _ in range(300):
+        B, h = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+        bs = int(rng.choice([1, 3, 8, 16, 32]))
+        max_pages = int(rng.integers(1, 200))
+        window = int(rng.choice([0, 1, 2, int(rng.integers(1, 3000))]))
+        nsplit, pps = paged_mod._split_plan(B, h, max_pages, bs, window,
+                                            132)
+        assert 1 <= nsplit <= max_pages and pps >= 1
+        for ctx in {1, bs, max_pages * bs,
+                    int(rng.integers(1, max_pages * bs + 1))}:
+            start = max(ctx - window, 0) if window else 0
+            first, last = start // bs, (ctx - 1) // bs
+            seen = []
+            for sp in range(nsplit):
+                p0 = first + sp * pps
+                for page in range(p0, min(p0 + pps, last + 1)):
+                    seen += [x for x in range(page * bs, page * bs + bs)
+                             if start <= x < ctx]
+            assert seen == list(range(start, ctx)), (B, h, max_pages, bs,
+                                                     window, ctx)
+
+
+def test_split_plan_fills_the_card_at_small_batch():
+    """Long contexts at small B give at least one wave of blocks over the
+    132 SMs; a batch that already fills the card is not split."""
+    for B, h in ((1, 2), (1, 8), (4, 32), (2, 6)):
+        nsplit, pps = paged_mod._split_plan(B, h, 128, 16, 0, 132)
+        assert B * h * nsplit >= 132 and nsplit * pps >= 128
+    assert paged_mod._split_plan(32, 32, 128, 16, 0, 132) == (1, 128)
+
+
+def test_ring_stages_fit_shared_memory():
+    """At least 3 ring slots, at most 8, about 24 KB; a page whose 3-slot
+    ring does not fit a block's shared memory raises."""
+    assert paged_mod._ring_stages(16, 128, 2) == 3      # bf16, d = 128
+    assert paged_mod._ring_stages(8, 32, 4) == 8        # f32, d = 32
+    assert paged_mod._ring_stages(32, 256, 4) == 3      # f32, d = 256
+    with pytest.raises(ValueError, match="block_size"):
+        paged_mod._ring_stages(40, 256, 4)
+
+
+def test_lanes_per_row_fill_the_warp_and_bound_registers():
+    """Every lane gets a row of a page (R = 32 / LPR <= bs) and holds at
+    most 64 f32 of q (VPL * E <= 64) for any bs and d <= 256."""
+    for bs in (1, 3, 8, 16, 17, 32, 64):
+        for d in (4, 8, 32, 64, 128, 136, 256):
+            for elem in (2, 4):
+                lpr = 1 << paged_mod._lanes_per_row(bs, d)
+                assert lpr <= 32 and 32 // lpr <= max(bs, 1)
+                nv = -(-d * elem // 16)
+                assert -(-nv // lpr) * (16 // elem) <= 64, (bs, d, elem)
+
+
+def test_paged_kernel_prescale_formula_matches_prescale():
+    """The kernel rounds float32(q) * float32(c) to bf16 (nearest, ties to
+    even) with c = _prescale_const: over random bf16 q that is bitwise
+    _prescale(q), for the scales of d = 32, 64, 128, 256."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(scale=3.0, size=(64, 4, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    qf = q.float().numpy()
+    for d in (32, 64, 128, 256):
+        c = np.float32(attention._prescale_const(d ** -0.5, torch.bfloat16))
+        u = (qf * c).astype(np.float32).view(np.uint32)
+        rounded = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16).view(
+            np.float32)
+        want = attention._prescale(q, d ** -0.5)
+        assert np.array_equal(rounded, want.float().numpy())
+        c32 = attention._prescale_const(d ** -0.5, torch.float32)
+        q32 = q.float()
+        assert torch.equal(attention._prescale(q32, d ** -0.5),
+                           torch.from_numpy(qf * np.float32(c32)))
+
+
+def test_chip_smoke_paged_work_at_the_long_shapes():
+    """chip_smoke's bytes K4 must move at llama2_7b's heads (bf16, h=32,
+    d=128, bs=16, 2048 positions each, window 0), for 4 and for 32
+    sequences: the figures PERF.md states."""
+    mod = _chip_smoke()
+    for B, want in ((4, 134_285_328), (32, 1_074_282_624)):
+        q = torch.zeros((B, 32, 128), dtype=torch.bfloat16)
+        nbytes, flops = mod.k4_work(q, np.full(B, 2048), 0, 16)
+        assert nbytes == want
+        assert flops == 4 * 32 * 128 * 2048 * B
+
+
+def test_read_last_stages_tables_in_one_buffer_on_cpu():
+    """The paged decoder's _read_last packs the context lengths and block
+    tables into one reused host buffer and returns each live request's
+    stored last row, as the batch and the table width change."""
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    dec = MeshShardedDecoder(paged=True, kv_blocks=16, kv_block_size=4,
+                             device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    dec._kv_cache.copy_(torch.randn(dec._kv_cache.shape, generator=gen))
+
+    class Slot:
+        def __init__(self, table, pos):
+            self.table, self.state = table, {"pos": pos}
+
+    class Engine:
+        def block_table(self, s):
+            return s.table
+
+    dec._kv_engine = Engine()
+    sizes = []
+    for live in ([Slot([3, 7], 6), Slot([1], 1)],
+                 [Slot([0, 2, 4, 6, 8], 20), Slot([5], 3), Slot([9, 10], 5)],
+                 [Slot([11], 4)],
+                 [Slot([i, 15 - i, 12, 13, 14], 17 + i % 4) for i in range(6)]):
+        got = dec._read_last(live)
+        want = np.stack([dec._kv_cache[s.table[(s.state["pos"] - 1) // 4],
+                                       (s.state["pos"] - 1) % 4, 0].numpy()
+                         for s in live])
+        assert np.array_equal(got, want)
+        sizes.append(dec._stage_host.numel())
+    # MAX_BATCH x (1 + width): allocated for width 2, grown once for 5.
+    assert sizes == [8 * 3, 8 * 3, 8 * 3, 8 * 6]
+    assert set(dec._zero_q) == {1, 2, 3, 6}
 
 
 def test_kernel_sources_carry_their_note():
