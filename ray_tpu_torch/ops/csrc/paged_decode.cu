@@ -278,8 +278,11 @@ paged_decode_kernel(const Args a) {
         const bool live = j < BS && lo + j >= start && lo + j < ctx;
         return live ? s : NEG_INF;
       };
-      auto add_row = [&](int j, float p) {  // l += p, acc += p * v_j
+      // l += p in f32; acc += p * v_j with p rounded to v's dtype first,
+      // as the reference rounds p before its P.V product.
+      auto add_row = [&](int j, float p) {
         l += p;
+        p = round_to<T>(p);
         const uint8_t* vrow = vs + j * stride;
 #pragma unroll
         for (int i2 = 0; i2 < VPL; ++i2) {

@@ -72,27 +72,38 @@ def paged_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
 def _paged_attention_plain(qs: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, bt: torch.Tensor,
                            cl: torch.Tensor, window: int) -> torch.Tensor:
-    """Plain version of K4 on pre-scaled q: gather every table page,
-    mask positions outside ``[max(ctx - window, 0), ctx)`` (their scores
-    to NEG_INF, their values to 0, so padding pages never leak in), and
-    softmax in the log2 domain in f32."""
+    """Plain version of K4 on pre-scaled q, page by page as the reference
+    kernel walks them: an f32 online softmax in the log2 domain whose l
+    sums the f32 p and whose accumulator takes p rounded to v's dtype.
+    Positions outside ``[max(ctx - window, 0), ctx)`` have their scores
+    set to NEG_INF and their values to 0, and a page holding none of them
+    leaves the state as it was, so padding pages never leak in."""
     B, h, d = qs.shape
     bs = k_cache.shape[1]
-    width = bt.shape[1] * bs
-    k = k_cache[bt.long()].reshape(B, width, h, d).float()
-    v = v_cache[bt.long()].reshape(B, width, h, d).float()
-    pos = torch.arange(width, device=qs.device)[None, :]
-    ctx = cl.long()[:, None]
+    dev = qs.device
+    q = qs.float()
+    ctx = cl.long()[:, None, None]                           # (B, 1, 1)
     start = (ctx - window).clamp(min=0) if window else torch.zeros_like(ctx)
-    live = (pos >= start) & (pos < ctx)                      # (B, width)
-    s = torch.einsum("bhd,bkhd->bhk", qs.float(), k)
-    s = torch.where(live[:, None, :], s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    v = torch.where(live[:, :, None, None], v, torch.zeros_like(v))
-    o = torch.einsum("bhk,bkhd->bhd", p, v) / l
-    return o.to(qs.dtype)
+    m = torch.full((B, h, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, h, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, h, d), dtype=torch.float32, device=dev)
+    for i in range(bt.shape[1]):
+        page = bt[:, i].long()
+        pos = i * bs + torch.arange(bs, device=dev)[None, None, :]
+        rows = (pos >= start) & (pos < ctx)                  # (B, 1, bs)
+        live = rows.any(dim=-1, keepdim=True)                # (B, 1, 1)
+        s = torch.einsum("bhd,bkhd->bhk", q, k_cache[page].float())
+        s = torch.where(rows, s, torch.full_like(s, NEG_INF))
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_next)
+        p = torch.exp2(s - m_next)                           # (B, h, bs)
+        v = v_cache[page]
+        v = torch.where(rows[:, 0, :, None, None], v, torch.zeros_like(v))
+        pv = torch.einsum("bhk,bkhd->bhd", p.to(v.dtype).float(), v.float())
+        m = torch.where(live, m_next, m)
+        l = torch.where(live, l * alpha + p.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(live, acc * alpha + pv, acc)
+    return (acc / l).to(qs.dtype)
 
 
 def _split_plan(B: int, h: int, max_pages: int, bs: int, window: int,

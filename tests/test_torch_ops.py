@@ -206,6 +206,27 @@ def test_paged_attention_matches_jax_kernel(h, d, bs):
             assert np.max(np.abs(got - want)) < 1e-5, window
 
 
+def test_paged_attention_bf16_bitwise_jax_kernel():
+    """In bf16 the plain K4 rounds where the reference kernel rounds (p to
+    v's dtype before P.V, l from the f32 p, page by page): bitwise against
+    ray_tpu.ops.paged_attention (Pallas, interpret) over windows 0, 1, 5,
+    with ragged contexts and every pool page filled past them."""
+    rng = np.random.default_rng(9)
+    q, kc, vc, bt, cls = _random_paged(rng, B=3, h=4, d=64, bs=16,
+                                       num_blocks=12, max_ctx=47)
+    cls[1:] = [1, 23]
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, kc, vc))
+    tq, tk, tv = (_t(x).to(torch.bfloat16) for x in (q, kc, vc))
+    for window in (0, 1, 5):
+        want = np.asarray(jax_paged_attention(
+            jq, jk, jv, bt, cls, window=window, interpret=True
+        ).astype(jnp.float32))
+        got = paged_attention(tq, tk, tv, torch.from_numpy(bt),
+                              torch.from_numpy(cls), window=window)
+        assert got.dtype == torch.bfloat16
+        assert np.array_equal(got.float().numpy(), want), window
+
+
 @pytest.mark.parametrize("window", [0, 1, 7])
 def test_paged_attention_reference_matches_jax(window):
     rng = np.random.default_rng(7)
