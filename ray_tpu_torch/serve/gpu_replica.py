@@ -29,12 +29,15 @@ scheduler thread.
 
 Request format: ``{"prompt": int | [int, ...], "tokens": int}`` -> list of
 ``tokens`` greedily decoded ids (the dense path continues from the LAST
-prompt token).  The disaggregated prefill/decode methods need the object
-plane and are a later slice.
+prompt token).  The control-plane methods (``set_serve_role``,
+``kv_ingest_info``, ``kv_debug``) are the reference's; the disaggregated
+prefill/decode handoff (``prefill_export``, ``disagg_generate``) is a
+later slice.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -98,6 +101,11 @@ class MeshShardedDecoder:
         self._rows: List[Optional[Any]] = [None] * MAX_BATCH
         # Last dispatched dense step: (tokens on the card, [(row, slot)]).
         self._pending = None
+        # Control-plane state (set_serve_role, kv_ingest_info, kv_debug).
+        self._serve_role: Optional[str] = None
+        self._ingest_info: Optional[Dict[str, Any]] = None
+        self._chain_stats = {"inline_fallbacks": 0, "handoff_retries": 0}
+        self._chain_lock = threading.Lock()  # lock-order: leaf
 
         self._paged = GLOBAL_CONFIG.paged_kv if paged is None else paged
         self._spec_k = max(0, (GLOBAL_CONFIG.speculative_k
@@ -346,16 +354,59 @@ class MeshShardedDecoder:
     def __call__(self, body: Dict[str, Any]) -> List[int]:
         return self._decode(body)
 
+    # -- control plane ------------------------------------------------------
+    def set_serve_role(self, role: Optional[str]) -> None:
+        """Pool tag from the controller (``ReplicaWrapper`` calls this
+        at replica construction): ``"prefill"`` / ``"decode"`` / None
+        (monolithic)."""
+        self._serve_role = role
+
+    def kv_ingest_info(self) -> Optional[Dict[str, Any]]:
+        """Where prefill replicas should stream chains for THIS
+        replica: the node store id.  None outside a runtime (plain-process
+        tests)."""
+        with self._chain_lock:
+            if self._ingest_info is not None:
+                return dict(self._ingest_info)
+        try:
+            from ray_tpu_torch._private import api_internal
+
+            rt = api_internal.require_runtime()
+            info = {"store": rt.store_id}
+        except Exception:
+            return None
+        with self._chain_lock:
+            self._ingest_info = info
+            return dict(info)
+
+    def kv_debug(self) -> Dict[str, Any]:
+        """Allocator + handoff gauges for tests: live block count,
+        unreleased exports, and the fallback/retry bookkeeping."""
+        with self._chain_lock:
+            chain = dict(self._chain_stats)
+        eng = getattr(self, "_kv_engine", None)
+        if eng is None:
+            return {"paged": False, "role": self._serve_role,
+                    "chain": chain}
+        with eng._guard:
+            st = eng.stats_locked()
+        st.update({"paged": True, "role": self._serve_role,
+                   "used": eng.allocator.used,
+                   "available": eng.allocator.available,
+                   "exports_outstanding": eng.exports_outstanding,
+                   "chain": chain})
+        return st
+
     # -- disaggregated serving: a later slice -------------------------------
     def prefill_export(self, body, ingest=None):
         raise NotImplementedError(
-            "disaggregated prefill needs the object plane, not ported yet "
-            "(ROADMAP.md Queue 1)")
+            "disaggregated prefill (the streamed-chain handoff over the "
+            "object plane) is not ported yet (ROADMAP.md Queue 1)")
 
     def disagg_generate(self, body, prefill=None, pool: str = ""):
         raise NotImplementedError(
-            "disaggregated decode needs the object plane, not ported yet "
-            "(ROADMAP.md Queue 1)")
+            "disaggregated decode (the streamed-chain handoff over the "
+            "object plane) is not ported yet (ROADMAP.md Queue 1)")
 
     # -- host-side reference (tests pin numerics against this) -------------
     def reference_decode(self, prompt, tokens: int) -> List[int]:
