@@ -51,9 +51,22 @@ Phases, each fatal on failure:
    per step, tokens/s, peak memory, the plain-attention step's time, and
    a profile of one step (K1's, K2's and K3's time per launch inside it,
    busy time).
+9. Main path 4, the serving path through the port's runtime:
+   ``ray_tpu_torch.init`` with no ``num_tpus`` must count the card (the
+   accelerator pool equals ``torch.cuda.device_count()``); a
+   ``num_tpus=1`` task runs in another process with
+   ``CUDA_VISIBLE_DEVICES`` naming the card and sees its name, a CPU task
+   sees ``""`` and no CUDA.  ``serve.run`` deploys the decoder of phase 7
+   (a subclass with a ``probe`` method) with ``num_tpus=1`` and its knobs
+   from ``_system_config``; phase 7's 16 requests go through the handle
+   from 16 threads: every chain bitwise ``reference_decode``, the
+   replica's ``kv_debug`` paged with ``used + available`` its pool, and
+   the probe shows the replica in its own process, on ``cuda``, with K4
+   launched there.  Logs the deploy time (worker spawn + replica start),
+   the first request's latency and the 16 requests' wall time.
 
 Launch counts are set to 0 just before each main path and read just after
-it.  Prints the kernels line, then as its last line
+it (in path 4, in the replica's process, through its probe).  Prints the kernels line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
 there is no card or the port is not beside this script.
 """
@@ -726,6 +739,120 @@ def serve_phase(torch):
     return launches
 
 
+def runtime_serve_phase(torch, smi):
+    """Main path 4: phase 7's decoder served by the port's runtime from a
+    worker granted the card."""
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    class ProbedDecoder(MeshShardedDecoder):
+        def probe(self, reset=False):
+            """The replica's process, card and K4 launch count."""
+            from ray_tpu_torch.ops import _build
+
+            out = {"pid": os.getpid(),
+                   "cvd": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "device": self._kv_cache.device.type,
+                   "launches": _build.launches["paged_decode"]}
+            if reset:
+                _build.reset_launches()
+            return out
+
+    def grant_probe():
+        import torch as t
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                t.cuda.get_device_name(0), os.getpid())
+
+    def cpu_probe():
+        import torch as t
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), t.cuda.is_available()
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, _system_config={
+        "paged_kv": True, "prefix_caching": True, "speculative_k": 3})
+    try:
+        cards = ray_tpu_torch.cluster_resources().get("TPU", 0)
+        log(f"runtime: head up in {time.perf_counter() - t0} s, "
+            f"accelerator pool {cards}")
+        check(cards == torch.cuda.device_count(),
+              f"the head counted {cards} cards, torch sees "
+              f"{torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        cvd, name, pid = ray_tpu_torch.get(
+            ray_tpu_torch.remote(num_tpus=1)(grant_probe).remote(),
+            timeout=300)
+        log(f"runtime: granted task in pid {pid} saw CUDA_VISIBLE_DEVICES="
+            f"{cvd!r}, {name} ({time.perf_counter() - t0} s)")
+        check(cvd == "0" and name == torch.cuda.get_device_name(0)
+              and pid != os.getpid(), "granted task did not see the card")
+        cvd, avail = ray_tpu_torch.get(
+            ray_tpu_torch.remote(cpu_probe).remote(), timeout=300)
+        check(cvd == "" and not avail, f"a CPU task saw CUDA_VISIBLE_DEVICES"
+              f"={cvd!r}, cuda available {avail}")
+
+        t0 = time.perf_counter()
+        dep = serve.deployment(ProbedDecoder, name="decoder", num_tpus=1,
+                               max_concurrency=16)
+        handle = serve.run(dep.bind(kv_blocks=128), name="decoder")
+        before = ray_tpu_torch.get(handle.method("probe").remote(reset=True),
+                                   timeout=300)
+        deploy_s = time.perf_counter() - t0
+        system = list(range(20))
+        reqs = [{"prompt": system + [32 + i % 32, i], "tokens": 3 + i % 10}
+                for i in range(16)]
+        out, lat = [None] * len(reqs), [None] * len(reqs)
+
+        def client(i):
+            c0 = time.perf_counter()
+            out[i] = ray_tpu_torch.get(handle.remote(reqs[i]), timeout=300)
+            lat[i] = time.perf_counter() - c0
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        t0 = time.perf_counter()                  # main path 4 starts
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        after = ray_tpu_torch.get(handle.method("probe").remote(),
+                                  timeout=300)    # main path 4 ends
+        check(not any(t.is_alive() for t in threads), "requests hung")
+        ref = MeshShardedDecoder(device="cpu")
+        for r, got in zip(reqs, out):
+            check(got == ref.reference_decode(r["prompt"], r["tokens"]),
+                  f"served chain differs from reference_decode for {r}")
+        dbg = ray_tpu_torch.get(handle.method("kv_debug").remote(),
+                                timeout=300)
+        check(dbg["paged"] is True and dbg["used"] + dbg["available"]
+              == dbg["kv_blocks_total"] == 128,
+              f"replica's kv_debug: {dbg}")
+        log(f"runtime: replica pid {after['pid']} (driver {os.getpid()}), "
+            f"CUDA_VISIBLE_DEVICES={after['cvd']!r}, tensors on "
+            f"{after['device']}, K4 launches {after['launches']} (reset "
+            f"from {before['launches']}); kv_debug used {dbg['used']} + "
+            f"available {dbg['available']} of {dbg['kv_blocks_total']}, "
+            f"prefix_hits {dbg['prefix_hits']}, spec accepted "
+            f"{dbg['spec_accepted']}/{dbg['spec_proposed']}; every chain "
+            f"bitwise reference_decode")
+        check(after["pid"] != os.getpid() and after["cvd"] == "0"
+              and after["device"] == "cuda",
+              f"the replica is not in a worker granted the card: {after}")
+        check(after["launches"] > 0, "K4 never launched in the replica")
+        log(f"runtime serve on {smi}: deploy (worker spawn + replica "
+            f"start) {deploy_s} s; first request's latency {lat[0]} s "
+            f"(min {min(lat)}, max {max(lat)}); 16 requests, "
+            f"{sum(len(o) for o in out)} tokens, wall {wall} s")
+        return after["launches"]
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+
 def main():
     import torch
 
@@ -764,6 +891,7 @@ def main():
     k1["launches"], (in_forward, k1["forward_busy_ms"]) = llama_phase(torch)
     k4["launches"] = serve_phase(torch)
     train, (in_step, step_busy) = train_phase(torch)
+    runtime_serve_phase(torch, smi)
     k1.update(in_forward["flash_fwd_kernel"],
               **in_step["flash_fwd_kernel"], step_busy_ms=step_busy)
     k2.update(in_step["flash_dkdv_kernel"], launches=train["flash_dkdv"])

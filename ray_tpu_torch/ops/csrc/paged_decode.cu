@@ -18,47 +18,67 @@
 // product for the tensor cores to take, so the math is f32 on the CUDA
 // cores, and what the design has to supply is bytes in flight and blocks:
 //
+// The reference walks a sequence's pages in order with one running max m
+// and rounds each weight p = 2^(s - m) to v's dtype before P.V (l sums the
+// f32 p).  Which value p rounds from depends on m, so the kernel holds the
+// same m as the reference at every page, across splits too:
+//
 // - Grid (split, head, sequence).  The host splits each sequence's live
 //   pages into `nsplit` runs of `pps` whole pages (flash-decoding), from an
 //   upper bound on the live length, B, h and the SM count, without a device
 //   sync (ops/paged_attention.py::_split_plan).  A split whose run holds no
-//   live page marks its partial empty and only takes its ticket.
-// - Each block is one warp.  It keeps a ring of `stages` (>= 3) page slots
-//   in shared memory full with 1-D bulk copies (one per k or v row of the
-//   page: d * elem bytes at a stride of h * d elements, issued by the lanes
-//   in parallel) that complete on one mbarrier per slot, and refills a slot
-//   as soon as it has read it.  The ring is sized to ~26 KB so that 8
-//   blocks, ~150 KB of loads, can be in flight on each SM.  The split's
-//   table entries are read 32 pages ahead, so no copy waits on a load.
-// - A page is computed at once: its bs scores, 32 / LPR rows at a time
-//   with LPR lanes to a row (16-byte vectors, 8 bf16 or 4 f32; one or two
-//   shuffles sum a row).  Each row group (the lanes of rows g, g + R, ...)
-//   keeps its own (m, l, acc): it takes the max of its scores on the page,
-//   rescales once per page, then adds p = 2^(s - m) and p * v per live
-//   row.  Dead positions (before `start` or past `ctx` in a live page) are
+//   live page marks its partial empty and only takes its ticket; only the
+//   last splits are ever empty.
+// - Each block is one warp.  It keeps a ring of `stages` (>= 3) slots in
+//   shared memory, each the k rows or the v rows of one page, full with
+//   1-D bulk copies (one per row: d * elem bytes at a stride of h * d
+//   elements, issued by the lanes in parallel) that complete on one
+//   mbarrier per slot, and refills a slot as soon as it has read it.  The
+//   ring is sized to ~26 KB.  The split's table entries are read 32 pages
+//   ahead, so no copy waits on a load.
+// - One split (nsplit = 1) walks its pages once: page i's k rows, then its
+//   v rows.  Several splits walk theirs twice: every page's k rows first,
+//   keeping the scores in shared memory (at most 16 KB, which caps pps),
+//   then every page's v rows.  Between the two passes a split publishes
+//   the max of its scores (a store, then a release of its flag with this
+//   launch's `epoch`) and takes the max of the earlier splits' (acquiring
+//   their flags): the reference's running max before its first page.
+//   Split ids are taken in the order the blocks start (an atomic counter),
+//   so a split waits only on splits already running; a wait that outlasts
+//   2^26 tries traps rather than hangs.  The v loads of the second pass
+//   are already in flight while a split waits.
+// - A page's k rows give its bs scores, 32 / LPR rows at a time with LPR
+//   lanes to a row (16-byte vectors, 8 bf16 or 4 f32; one or two shuffles
+//   sum a row), and their max over the warp.  Its v rows then take one
+//   rescale to the new common m and each live row's p: l += p in f32,
+//   acc += round(p) * v.  Each row group (the lanes of rows g, g + R, ...)
+//   keeps its own (l, acc) under the common m, and the groups sum at the
+//   end.  Dead positions (before `start` or past `ctx` in a live page) are
 //   selected out, never multiplied by a weight of 0: their rows may hold
-//   NaN or Inf.  The groups merge once, by shuffles, at the end, weighted
-//   2^(m_g - M) as the splits are.  No load sits behind a branch: a lane's
-//   vectors past the row's end read its last vector (q is 0 there).
+//   NaN or Inf.  No load sits behind a branch: a lane's vectors past the
+//   row's end read its last vector (q is 0 there).
 // - q's, the context length's and the split's first table entries' loads
 //   go out first, so a short call waits on the length, then the rows.
 // - The splits are merged in the same launch: every split writes its
 //   unnormalised (m, l, acc) to a workspace, and the last block of each
 //   (sequence, head) to take its ticket merges them (weights 2^(m_s - M);
-//   an empty split, l = 0, is skipped) and resets the ticket to 0, so the
-//   cached workspace serves the next launch.  With one split the block
-//   writes acc / l itself.
+//   an empty split, l = 0, is skipped) and resets the ticket and the split
+//   counter to 0, so the cached workspace serves the next launch.  With
+//   one split the block writes acc / l itself.
 //
-// 2^x is ex2.approx.ftz (exp2_approx): 0 gives exactly 1, and NEG_INF - m
-// gives 0.  So window = 1 stays an exact gather of the stored row (the
-// serving decoder's bitwise chains rest on it): one split, one live
-// position, m = s, p = 2^0 = 1, l = 1 and acc = fmaf(1, v, 0) = v, and the
-// idle groups (NEG_INF, 0, 0) add exact zeros; the card tests hold it
-// bitwise at the serving and the long-batch shapes.
+// So the kernel differs from the reference only in f32 rounding: the
+// order of the score sums and of the split merge, and ex2.approx for 2^x,
+// which can move a p across a bf16 rounding point.  ex2.approx.ftz of 0
+// gives exactly 1, and of NEG_INF - m gives 0.  So window = 1 stays an
+// exact gather of the stored row (the serving decoder's bitwise chains
+// rest on it): one split, one live position, m = s, p = 2^0 = 1, l = 1 and
+// acc = fmaf(1, v, 0) = v, and the idle groups are not merged in; the
+// card tests hold it bitwise at the serving and the long-batch shapes.
 //
 // Takes f32 and bf16 with d * elem a multiple of 16 bytes, 16 <= d * elem
-// <= 1024 (d <= 256), and 3 ring slots of 2 * bs rows in shared memory; the
-// wrapper raises on the rest.  k_cache and v_cache may alias.
+// <= 1024 (d <= 256), and 3 ring slots of bs rows and a page's scores in
+// shared memory; the wrapper raises on the rest.  k_cache and v_cache may
+// alias.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,11 +104,31 @@ struct Args {
   const int* bt;
   const int* cl;
   void* o;
-  float* ws;     // nsplit > 1: B*H*nsplit*D acc partials, B*H*nsplit (m, l)
-  int* tickets;  // nsplit > 1: B*H zeros, left zero
+  // nsplit > 1: B*H*nsplit*D acc partials, B*H*nsplit (m, l), then
+  // B*H*nsplit published maxima.
+  float* ws;
+  // nsplit > 1: B*H merge tickets, then B*H split counters (zeros, left
+  // zero), and B*H*nsplit flags (only ever set to an epoch, so none holds
+  // this launch's).
+  int* tickets;
+  int* flags;
   float qscale;
   int H, D, BS, max_pages, window, nsplit, pps, stages, lpr_log2;
+  int epoch;  // this launch's flag value, never 0 nor a recent launch's
 };
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
 
 // A 16-byte vector of T as f32, and back.
 __device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
@@ -139,7 +179,7 @@ paged_decode_kernel(const Args a) {
   constexpr int E = 16 / sizeof(T);
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[MAX_STAGES];
-  const int split = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int head = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x, lg = a.lpr_log2;
   const int LPR = 1 << lg, R = 32 >> lg;
   const int sub = lane & (LPR - 1), rg = lane >> lg;
@@ -148,12 +188,23 @@ paged_decode_kernel(const Args a) {
   const int NV = D / E;  // 16-byte vectors in a row
   const uint32_t row_bytes = D * sizeof(T);
   const uint32_t stride = row_bytes + 16;
-  const uint32_t stage_bytes = 2 * BS * stride;  // k rows, then v rows
-  // The ring (which later holds the splits' weights), then the page's
-  // scores.
+  const uint32_t stage_bytes = BS * stride;  // the k or the v rows of a page
+  const size_t bh = (size_t)b * H + head;
+  const size_t BH = (size_t)gridDim.z * H;
+  const bool two_pass = a.nsplit > 1;
+  // Several splits: split ids in the order the blocks start, so a split's
+  // look-back waits only on splits that are already running.
+  int split = 0;
+  if (two_pass) {
+    if (lane == 0) split = atomicAdd(a.tickets + BH + bh, 1);
+    split = __shfl_sync(FULL, split, 0);
+  }
+  // The ring (which later holds the splits' weights), then the scores and
+  // maxima of the pages: every page of the split in two passes, the
+  // current page in one.
   float* sc = reinterpret_cast<float*>(
       ring + max(a.stages * stage_bytes, 4u * a.nsplit));
-  const size_t bh = (size_t)b * H + head;
+  float* pgmax = sc + (two_pass ? a.pps : 1) * BS;
   // The vectors of this lane: runs of G, the lanes of a row side by side.
   // Past the row's end (vec >= NV) a lane reads the last vector instead,
   // so no load sits behind a branch: its q is 0 there, and that part of
@@ -192,14 +243,15 @@ paged_decode_kernel(const Args a) {
   __syncwarp();
 
   // This split's live pages [p0, p0 + n): relative to the sequence's first
-  // live page, so short sequences leave their last splits empty.
+  // live page, so short sequences leave their last splits empty (and only
+  // the last ones: a split with pages follows full splits).
   const int ctx = min(cl_b, a.max_pages * BS);
   const int start = a.window > 0 ? max(ctx - a.window, 0) : 0;
   const int p0 = start / BS + split * a.pps;
   const int n = ctx > 0 ? max(min(a.pps, (ctx - 1) / BS + 1 - p0), 0) : 0;
 
   // Each row group (the LPR lanes of rows rg, rg + R, ...) keeps its own
-  // (m, l, acc); the groups merge once at the end.
+  // (l, acc) under the warp's common m; the groups merge once at the end.
   float acc[VPL][E];
 #pragma unroll
   for (int i = 0; i < VPL; ++i)
@@ -212,21 +264,33 @@ paged_decode_kernel(const Args a) {
     const T* vc = static_cast<const T*>(a.vc);
     // The split's table entries, 32 pages to a register (the first 32
     // from the early load where it holds them), the next 32 loaded as the
-    // current ones start to be used.
+    // current ones start to be used; the second pass starts over.
     const int* bt = bt_row + p0;
     const int src = lane + p0 - spec0;  // p0 >= spec0
     int tb_cur = __shfl_sync(FULL, tb_spec, src & 31);
     if (src >= 32 && lane < n) tb_cur = bt[lane];
     int tb_next = lane + 32 < n ? bt[lane + 32] : 0;
     int chunk = 0;
-    // The live rows of page j of the split (j rising by one a call) into
-    // ring slot `stage`: one copy per k or v row, the lanes issuing in
-    // parallel after lane 0 has armed the slot's barrier.  Dead rows are
-    // not copied; their stale slots are selected out like any dead row.
-    auto issue = [&](int j, int stage) {
+    // Item i of the split's 2n: page i's k rows for i < n, then page
+    // i - n's v rows (two passes); or page i / 2's k rows, then its v rows
+    // (one pass).
+    auto is_k = [&](int i) { return two_pass ? i < n : (i & 1) == 0; };
+    auto page_of = [&](int i) {
+      return two_pass ? (i < n ? i : i - n) : i >> 1;
+    };
+    // Item i's live rows into ring slot `stage`: one copy per row, the
+    // lanes issuing in parallel after lane 0 has armed the slot's barrier.
+    // Dead rows are not copied; their stale slots are selected out like
+    // any dead row.
+    auto issue = [&](int i, int stage) {
+      const int j = page_of(i);
       if ((j >> 5) != chunk) {
+        if ((j >> 5) == chunk + 1) {
+          tb_cur = tb_next;
+        } else {  // the second pass starts over at page 0
+          tb_cur = (j >> 5) * 32 + lane < n ? bt[(j >> 5) * 32 + lane] : 0;
+        }
         chunk = j >> 5;
-        tb_cur = tb_next;
         const int jn = (chunk + 1) * 32 + lane;
         tb_next = jn < n ? bt[jn] : 0;
       }
@@ -234,95 +298,114 @@ paged_decode_kernel(const Args a) {
       const int lo = (p0 + j) * BS;
       const int r0 = max(start - lo, 0), rows = min(ctx - lo, BS) - r0;
       const uint32_t bar = bar0 + 8 * stage;
-      if (lane == 0) mbar_arrive_expect_tx(bar, 2 * rows * row_bytes);
+      if (lane == 0) mbar_arrive_expect_tx(bar, rows * row_bytes);
       __syncwarp();
       const uint32_t dst = smem_u32(ring + stage * stage_bytes);
-      for (int r = lane; r < 2 * rows; r += 32) {
-        const int row = r0 + (r < rows ? r : r - rows);
-        const size_t at = ((blk * BS + row) * H + head) * D;
-        bulk_load(dst + (r < rows ? row : BS + row) * stride,
-                  (r < rows ? kc : vc) + at, row_bytes, bar);
-      }
+      const T* cache = is_k(i) ? kc : vc;
+      for (int r = r0 + lane; r < r0 + rows; r += 32)
+        bulk_load(dst + r * stride, cache + ((blk * BS + r) * H + head) * D,
+                  row_bytes, bar);
     };
 #pragma unroll 1
-    for (int i = 0; i < min(n, a.stages); ++i) issue(i, i);
+    for (int i = 0; i < min(2 * n, a.stages); ++i) issue(i, i);
 #pragma unroll
     for (int i = 0; i < VPL; ++i)
 #pragma unroll
       for (int e = 0; e < E; ++e) qf[i][e] = round_to<T>(qf[i][e] * a.qscale);
 
+    const size_t part = bh * a.nsplit + split;
+    float mloc = NEG_INF;  // two passes: the max of this split's scores
     int stage = 0;
     uint32_t parity = 0;
-    for (int i = 0; i < n; ++i) {
+    for (int i = 0; i < 2 * n; ++i) {
       mbar_wait(bar0 + 8 * stage, parity);
-      const uint8_t* ks = ring + stage * stage_bytes;
-      const uint8_t* vs = ks + BS * stride;
-      const int lo = (p0 + i) * BS;
-      // The dot products of row j of the page with q, summed over the
-      // LPR lanes of its group.  Rows past the page (j >= BS) read its
-      // last row and are masked by the caller.
-      auto score = [&](int j) {
-        const uint8_t* krow = ks + min(j, BS - 1) * stride;
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
+      const uint8_t* rows = ring + stage * stage_bytes;
+      const int pg = page_of(i);
+      const int lo = (p0 + pg) * BS;
+      float* psc = sc + (two_pass ? pg : 0) * BS;
+      float* pmx = pgmax + (two_pass ? pg : 0);
+      if (is_k(i)) {
+        // The page's scores: row j's dot product with q, summed over the
+        // LPR lanes of its group, NEG_INF where dead (rows past the page,
+        // j >= BS, read its last row and are masked too); then their max.
+        float pm = NEG_INF;
+        for (int j = rg; j - rg < BS; j += R) {
+          const uint8_t* krow = rows + min(j, BS - 1) * stride;
+          float part4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int i2 = 0; i2 < VPL; ++i2) {
-          float kf[E];
-          load16(reinterpret_cast<const T*>(krow + voff[i2]), kf);
+          for (int i2 = 0; i2 < VPL; ++i2) {
+            float kf[E];
+            load16(reinterpret_cast<const T*>(krow + voff[i2]), kf);
 #pragma unroll
-          for (int e = 0; e < E; ++e)
-            part[e % 4] = fmaf(qf[i2][e], kf[e], part[e % 4]);
+            for (int e = 0; e < E; ++e)
+              part4[e % 4] = fmaf(qf[i2][e], kf[e], part4[e % 4]);
+          }
+          float s = (part4[0] + part4[1]) + (part4[2] + part4[3]);
+          for (int off = LPR / 2; off > 0; off /= 2)
+            s += __shfl_xor_sync(FULL, s, off);
+          const bool live = j < BS && lo + j >= start && lo + j < ctx;
+          s = live ? s : NEG_INF;
+          if (sub == 0 && j < BS) psc[j] = s;
+          pm = fmaxf(pm, s);
         }
-        float s = (part[0] + part[1]) + (part[2] + part[3]);
-        for (int off = LPR / 2; off > 0; off /= 2)
-          s += __shfl_xor_sync(FULL, s, off);
-        const bool live = j < BS && lo + j >= start && lo + j < ctx;
-        return live ? s : NEG_INF;
-      };
-      // l += p in f32; acc += p * v_j with p rounded to v's dtype first,
-      // as the reference rounds p before its P.V product.
-      auto add_row = [&](int j, float p) {
-        l += p;
-        p = round_to<T>(p);
-        const uint8_t* vrow = vs + j * stride;
-#pragma unroll
-        for (int i2 = 0; i2 < VPL; ++i2) {
-          float vf[E];
-          load16(reinterpret_cast<const T*>(vrow + voff[i2]), vf);
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[i2][e] = fmaf(p, vf[e], acc[i2][e]);
+        for (int off = LPR; off < 32; off *= 2)
+          pm = fmaxf(pm, __shfl_xor_sync(FULL, pm, off));
+        if (lane == 0) *pmx = pm;
+        mloc = fmaxf(mloc, pm);
+        if (two_pass && i == n - 1 && lane == 0) {
+          // Publish this split's max for the later splits' look-back.
+          a.ws[BH * a.nsplit * (D + 2) + part] = mloc;
+          __threadfence();
+          st_release(a.flags + part, a.epoch);
         }
-      };
-      auto rescale = [&](float alpha) {
+      } else {
+        if (two_pass && i == n) {
+          // The running max the reference kernel holds before this
+          // split's first page: the max of the earlier splits' scores.
+          // Each lane waits on splits lane, lane + 32, ...
+          const float* pub = a.ws + BH * a.nsplit * (D + 2) + bh * a.nsplit;
+          const int* flags = a.flags + bh * a.nsplit;
+          for (int s = lane; s < split; s += 32) {
+            uint32_t tries = 0;
+            while (ld_acquire(flags + s) != a.epoch)
+              if (++tries == (1u << 26)) __trap();
+            m = fmaxf(m, __ldcg(pub + s));
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off /= 2)
+            m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+        }
+        // One rescale for the page under the warp's common max, then each
+        // live row's weight p = 2^(s - m): l sums p in f32, acc takes p
+        // rounded to v's dtype, as the reference rounds before P.V.
+        const float m_new = fmaxf(m, *pmx);
+        const float alpha = exp2_approx(m - m_new);
         l *= alpha;
 #pragma unroll
         for (int i2 = 0; i2 < VPL; ++i2)
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[i2][e] *= alpha;
-      };
-      float m_new;
-      if (BS <= R) {
-        // One row a group: its score, one rescale, its weight and value.
-        const float s = score(rg);
-        m_new = fmaxf(m, s);
-        rescale(exp2_approx(m - m_new));
-        if (s != NEG_INF) add_row(rg, exp2_approx(s - m_new));
-      } else {
-        // Several rows a group: their scores (kept in shared memory) and
-        // max, one rescale, then each live row's weight and value.
-        float pm = NEG_INF;
-        for (int j = rg; j - rg < BS; j += R) {
-          const float s = score(j);
-          if (sub == 0 && j < BS) sc[j] = s;
-          pm = fmaxf(pm, s);
+        for (int j = rg; j < BS; j += R) {
+          const float s = psc[j];
+          if (s == NEG_INF) continue;
+          const float p = exp2_approx(s - m_new);
+          l += p;
+          const float pr = round_to<T>(p);
+          const uint8_t* vrow = rows + j * stride;
+#pragma unroll
+          for (int i2 = 0; i2 < VPL; ++i2) {
+            float vf[E];
+            load16(reinterpret_cast<const T*>(vrow + voff[i2]), vf);
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[i2][e] = fmaf(pr, vf[e], acc[i2][e]);
+          }
         }
-        __syncwarp();
-        m_new = fmaxf(m, pm);
-        rescale(exp2_approx(m - m_new));
-        for (int j = rg; j < BS; j += R)
-          if (sc[j] != NEG_INF) add_row(j, exp2_approx(sc[j] - m_new));
+        m = m_new;
       }
-      m = m_new;
-      if (i + a.stages < n) {  // every lane is done with this slot: refill
+      // Every lane is done with this slot and this page's scores.
+      __syncwarp();
+      if (i + a.stages < 2 * n) {  // refill the slot
         fence_proxy_async();
         __syncwarp();
         issue(i + a.stages, stage);
@@ -331,31 +414,22 @@ paged_decode_kernel(const Args a) {
     }
   }
 
-  // Merge the R row groups pairwise by shuffles, weights 2^(m - M): an idle
-  // group's (NEG_INF, 0, 0) weighs 0 and leaves the other exact.  Then
-  // every row group holds the merged (m, l, acc) of this split.  When one
-  // group alone saw live rows (always so at window = 1), its own state is
-  // the split's, and group `owner` writes it.
+  // Merge the R row groups.  They share m, so the merge is a sum, by a
+  // butterfly after which every group holds the split's (l, acc).  When
+  // one group alone saw live rows (always so at window = 1), its own state
+  // is the split's and group `owner` writes it untouched.
   const unsigned busy = __ballot_sync(FULL, sub == 0 && l > 0.f);
   const int owner = busy ? (__ffs(busy) - 1) >> lg : 0;
   if (__popc(busy) <= 1) {
-    m = __shfl_sync(FULL, m, owner << lg);
     l = __shfl_sync(FULL, l, owner << lg);
   } else {
     for (int off = LPR; off < 32; off *= 2) {
-      const float m_o = __shfl_xor_sync(FULL, m, off);
-      const float l_o = __shfl_xor_sync(FULL, l, off);
-      const float m_n = fmaxf(m, m_o);
-      const float w = exp2_approx(m - m_n), w_o = exp2_approx(m_o - m_n);
-      l = fmaf(l_o, w_o, l * w);
+      l += __shfl_xor_sync(FULL, l, off);
 #pragma unroll
       for (int i = 0; i < VPL; ++i)
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float x = __shfl_xor_sync(FULL, acc[i][e], off);
-          acc[i][e] = fmaf(x, w_o, acc[i][e] * w);
-        }
-      m = m_n;
+        for (int e = 0; e < E; ++e)
+          acc[i][e] += __shfl_xor_sync(FULL, acc[i][e], off);
     }
   }
 
@@ -379,7 +453,7 @@ paged_decode_kernel(const Args a) {
   // Several splits: publish this one's partial, take the ticket.
   float* red = reinterpret_cast<float*>(ring);  // the splits' weights
   const size_t part = bh * a.nsplit + split;
-  float* ml = a.ws + (size_t)gridDim.z * H * a.nsplit * D;
+  float* ml = a.ws + BH * a.nsplit * D;
   if (n > 0 && rg == owner) {
 #pragma unroll
     for (int i = 0; i < VPL; ++i)
@@ -403,7 +477,7 @@ paged_decode_kernel(const Args a) {
 
   // The last split of this (sequence, head) merges all of them.
   __threadfence();
-  if (lane == 0) a.tickets[bh] = 0;
+  if (lane == 0) a.tickets[bh] = a.tickets[BH + bh] = 0;
   // Each lane takes splits lane, lane + 32, ...: M and L by warp
   // reductions, each split's weight (0 for an empty one) into shared
   // memory, then every lane merges its vectors over all splits at once.
@@ -479,32 +553,37 @@ int launch_for(const Args& a, int B, size_t smem, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; 2^lpr_log2 lanes share a row.  ws and
-// tickets may be null when nsplit == 1.  Returns cudaGetLastError() after
+// dtype: 0 = float32, 1 = bfloat16; 2^lpr_log2 lanes share a row.  ws,
+// tickets and flags may be null when nsplit == 1; epoch is the flag value of this
+// launch (non-zero, unlike any recent launch's on this workspace).  Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for what the kernel does not take.
 extern "C" int rtt_paged_decode(const void* q, const void* k_cache,
                                 const void* v_cache, const void* block_tables,
                                 const void* context_lens, void* o, void* ws,
-                                void* tickets, int dtype, int B, int H, int D,
+                                void* tickets, void* flags, int dtype, int B, int H, int D,
                                 int BS, int max_pages, int window, int nsplit,
                                 int pps, int stages, int lpr_log2,
-                                float qscale, void* stream) {
+                                float qscale, int epoch, void* stream) {
   const int elem = dtype == 0 ? 4 : 2;
   const size_t row = static_cast<size_t>(D) * elem;
   const size_t stride = row + 16;
-  const size_t smem = std::max(stages * 2 * BS * stride, 4 * size_t(nsplit)) +
-                      4 * static_cast<size_t>(BS);
+  const size_t score_pages = nsplit > 1 ? pps : 1;
+  const size_t smem = std::max(stages * BS * stride, 4 * size_t(nsplit)) +
+                      4 * score_pages * (BS + 1);
   if ((dtype != 0 && dtype != 1) || D < 1 || row % 16 || row > 1024 ||
       B < 1 || B > 65535 || H < 1 || H > 65535 || BS < 1 ||
       max_pages < 1 || stages < 3 || stages > MAX_STAGES || lpr_log2 < 0 ||
       lpr_log2 > 5 || smem > MAX_SMEM || nsplit < 1 || pps < 1 ||
-      (nsplit > 1 && (ws == nullptr || tickets == nullptr)))
+      (nsplit > 1 && (ws == nullptr || tickets == nullptr ||
+                      flags == nullptr || epoch == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k_cache, v_cache,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(context_lens), o,
-               static_cast<float*>(ws), static_cast<int*>(tickets), qscale,
-               H, D, BS, max_pages, window, nsplit, pps, stages, lpr_log2};
+               static_cast<float*>(ws), static_cast<int*>(tickets),
+               static_cast<int*>(flags), qscale,
+               H, D, BS, max_pages, window, nsplit, pps, stages, lpr_log2,
+               epoch};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_for<float>(a, B, smem, st)
                     : launch_for<__nv_bfloat16>(a, B, smem, st);

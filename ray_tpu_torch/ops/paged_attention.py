@@ -8,10 +8,12 @@ context order.  A decode step attends ONE query token per sequence to the
 trailing ``window`` positions of its context (0 = all of it).  The kernel
 (``csrc/paged_decode.cu``) replaces the Pallas kernel ``_paged_kernel``:
 an f32 online softmax in the log2 domain over q pre-scaled by
-``sm_scale*log2(e)`` (the kernel scales q itself), one warp per (split,
+``sm_scale*log2(e)`` (the kernel scales q itself), each weight rounded to
+v's dtype before P.V as the reference rounds it, one warp per (split,
 head, sequence), each split a run of whole live pages (``_split_plan``)
 streamed through a shared-memory ring by bulk copies (``_ring_stages``),
-and the splits merged by the last of them in the same launch.
+every split starting from the running max of the pages before it, and the
+splits merged by the last of them in the same launch.
 
 ``window=1`` is an exact gather of the stored row (softmax over one
 position is exactly 1.0), in the kernel and in the plain version; the
@@ -32,12 +34,14 @@ from ray_tpu_torch.ops.attention import NEG_INF, _prescale, _prescale_const
 _KERNEL = "paged_decode"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_P,) * 8 + (_I,) * 11 + (ctypes.c_float, _P)
+_ARGS = (_P,) * 9 + (_I,) * 11 + (ctypes.c_float, _I, _P)
 _FN = None                  # the configured C launcher, at first launch
 _BLOCKS_PER_SM = 8          # _split_plan's target of blocks per SM
-_RING_BYTES = 26 * 1024     # a block's ring: 8 blocks fit an SM
+_RING_BYTES = 26 * 1024     # a block's ring of page slots
+_SCORE_BYTES = 16 * 1024    # a split's scores, kept between its two passes
 _MAX_SMEM = 231424          # dynamic shared memory a block may ask for
-_WORKSPACES: dict = {}      # (device index, stream) -> (partials, tickets)
+_WORKSPACES: dict = {}      # (device, stream) -> (partials, tickets, flags)
+_EPOCH = [0]                # the last split launch's flag value
 
 
 def paged_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -113,8 +117,11 @@ def _split_plan(B: int, h: int, max_pages: int, bs: int, window: int,
 
     The live range spans at most ``span`` pages: the whole table, or for a
     window of w positions ``ceil((w - 1) / bs) + 1`` pages.  Splits are
-    added while ``B * h * nsplit`` blocks stay within eight per SM (what
-    fits at once), each split a whole number of pages; ``window=1`` spans one page and gets 1 split.
+    added while ``B * h * nsplit`` blocks stay within eight per SM, each
+    split a whole number of pages; ``window=1`` spans one page and gets 1
+    split.  Several splits keep their scores in shared memory between
+    their two passes, so a split then holds at most ``_SCORE_BYTES`` of
+    them (4 bytes a position and a page's max), which may add splits.
     Split s of a sequence takes its live pages ``[first + s*pps, first +
     (s+1)*pps)``, where ``first`` is the page of its first live position.
     """
@@ -123,6 +130,8 @@ def _split_plan(B: int, h: int, max_pages: int, bs: int, window: int,
         span = min(span, -(-(window - 1) // bs) + 1)
     nsplit = min(span, max(1, _BLOCKS_PER_SM * sm_count // (B * h)))
     pps = -(-span // nsplit)
+    if nsplit > 1:
+        pps = min(pps, max(1, _SCORE_BYTES // (4 * (bs + 1))))
     return -(-span // pps), pps
 
 
@@ -135,17 +144,18 @@ def _lanes_per_row(bs: int, d: int) -> int:
 
 
 def _ring_stages(bs: int, d: int, elem: int) -> int:
-    """Ring slots of one page's k and v rows (``2 * bs`` rows of ``d *
-    elem`` bytes, each padded by 16 B): as many as fit in ``_RING_BYTES``,
-    at least 3 and at most 8.  Raises when 3 slots
-    and the page's scores do not fit a block's shared memory."""
+    """Ring slots of one page's k or v rows (``bs`` rows of ``d * elem``
+    bytes, each padded by 16 B): as many as fit in ``_RING_BYTES``, at
+    least 3 and at most 8.  Raises when 3 slots and a page's scores do not
+    fit a block's shared memory."""
     row_bytes = d * elem
-    stage = 2 * bs * (row_bytes + 16)
-    if 3 * stage + 4 * bs > _MAX_SMEM:
+    stage = bs * (row_bytes + 16)
+    if 3 * stage + 4 * (bs + 1) > _MAX_SMEM:
         raise ValueError(
-            f"paged kernel: a page of {bs} rows of {row_bytes} B (k and v) "
-            f"needs {3 * stage + 4 * bs} B of shared memory for its 3-slot "
-            f"ring, more than {_MAX_SMEM}; use a smaller block_size")
+            f"paged kernel: a page of {bs} rows of {row_bytes} B needs "
+            f"{3 * stage + 4 * (bs + 1)} B of shared memory for its 3-slot "
+            f"ring and its scores, more than {_MAX_SMEM}; use a smaller "
+            f"block_size")
     return max(3, min(8, _RING_BYTES // stage))
 
 
@@ -163,20 +173,25 @@ def _launch_plan(B: int, h: int, d: int, elem: int, bs: int, max_pages: int,
     return _ring_stages(bs, d, elem), nsplit, pps, _lanes_per_row(bs, d)
 
 
-def _workspace(dev: torch.device, stream: int, n_ws: int, n_tickets: int):
-    """The (f32 partials, int32 tickets) of split launches on one stream,
-    grown as needed.  The kernel leaves every ticket at 0, and launches on
-    one stream run in order, so a stream's workspace is reused as it is."""
+def _workspace(dev: torch.device, stream: int, n_ws: int, n_tickets: int,
+               n_flags: int):
+    """The (f32 partials, int32 tickets, int32 flags) of split launches on
+    one stream, grown as needed.  The kernel leaves every ticket at 0 and
+    sets flags only to its launch's epoch, and launches on one stream run
+    in order, so a stream's workspace is reused as it is."""
     key = (dev.index, stream)
-    ws, tickets = _WORKSPACES.get(key, (None, None))
-    if ws is None or ws.numel() < n_ws or tickets.numel() < n_tickets:
-        ws = torch.empty(max(n_ws, 0 if ws is None else ws.numel()),
-                         dtype=torch.float32, device=dev)
-        tickets = torch.zeros(max(n_tickets, 0 if tickets is None
-                                  else tickets.numel()),
-                              dtype=torch.int32, device=dev)
-        _WORKSPACES[key] = ws, tickets
-    return ws, tickets
+    bufs = _WORKSPACES.get(key)
+    if bufs is None or bufs[0].numel() < n_ws or bufs[1].numel() < n_tickets \
+            or bufs[2].numel() < n_flags:
+        old = bufs or [torch.empty(0)] * 3
+        bufs = (torch.empty(max(n_ws, old[0].numel()), dtype=torch.float32,
+                            device=dev),
+                torch.zeros(max(n_tickets, old[1].numel()),
+                            dtype=torch.int32, device=dev),
+                torch.zeros(max(n_flags, old[2].numel()), dtype=torch.int32,
+                            device=dev))
+        _WORKSPACES[key] = bufs
+    return bufs
 
 
 def _launcher():
@@ -232,13 +247,19 @@ def _paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         B, h, d, q.element_size(), bs, max_pages, window, dev.index)
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = tickets = None
+    ws = tickets = flags = None
+    epoch = 0
     if nsplit > 1:
-        ws, tickets = _workspace(dev, stream, B * h * nsplit * (d + 2), B * h)
-        ws, tickets = ws.data_ptr(), tickets.data_ptr()
+        # Partials (acc, m, l) and published maxima; merge tickets and
+        # split counters; flags.  Each split launch sets its flags to a new
+        # epoch, so the flags never need a reset.
+        ws, tickets, flags = (x.data_ptr() for x in _workspace(
+            dev, stream, B * h * nsplit * (d + 3), 2 * B * h, B * h * nsplit))
+        _EPOCH[0] = _EPOCH[0] % 0x7FFFFFFE + 1
+        epoch = _EPOCH[0]
     args = (q_p, k_p, v_p, bt.data_ptr(), cl.data_ptr(), o.data_ptr(), ws,
-            tickets, dtype, B, h, d, bs, max_pages, window, nsplit, pps,
-            stages, lpr_log2, qscale, stream)
+            tickets, flags, dtype, B, h, d, bs, max_pages, window, nsplit, pps,
+            stages, lpr_log2, qscale, epoch, stream)
     fn = _launcher()
     if dev.index == torch.cuda.current_device():
         err = fn(*args)

@@ -14,6 +14,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch as ray
+from ray_tpu_torch import exceptions as exc
 from ray_tpu_torch.remote_function import _bulk_submit
 
 CONTROLLER_NAME = "SERVE_CONTROLLER"
@@ -346,7 +347,8 @@ class ServeController:
         actor = remote_cls.options(**opts).remote(
             d["cls_or_fn"], d.get("init_args", ()),
             d.get("init_kwargs", {}), d.get("role"))
-        return {"actor": actor, "version": version}
+        return {"actor": actor, "version": version,
+                "spawned": time.monotonic(), "ready": False}
 
     def record_pool_metric(self, name: str, key: str, value: float):
         """One pool-saturation sample ((value, ts) into the (name, key)
@@ -497,6 +499,11 @@ class ServeController:
             return self._reconcile_once()  # noqa: RTL505 -- the reconcile serializer is strictly OUTER to the controller lock; no path under _lock takes _reconcile_lock
 
     DRAIN_S = 3.0
+    # A replica whose constructor has not returned yet (a model loading,
+    # a card's context starting) answers no health check: it is kept, not
+    # replaced, for this long after its spawn.  A replacement of a replica
+    # still holding its accelerator could never be placed.
+    START_TIMEOUT_S = 300.0
 
     def _retire(self, rep):
         with self._lock:
@@ -530,7 +537,12 @@ class ServeController:
             for r in reps:
                 try:
                     ray.get(r["actor"].health_check.remote(), timeout=5)
+                    r["ready"] = True
                     alive.append(r)
+                except exc.GetTimeoutError:
+                    if not r.get("ready", True) and time.monotonic() - \
+                            r["spawned"] < self.START_TIMEOUT_S:
+                        alive.append(r)  # still starting
                 except Exception:
                     pass  # dead or unhealthy: dropped, replaced below
             if d.get("role") and d.get("autoscaling_config"):

@@ -411,7 +411,7 @@ def test_paged_kernel_raises_on_what_it_does_not_take(cuda):
         call(zeros(2, 2, 264), zeros(4, 16, 2, 264))
     with pytest.raises(ValueError, match="block_size"):     # ring too big
         call(zeros(2, 2, 256, dtype=torch.float32),
-             zeros(4, 40, 2, 256, dtype=torch.float32))
+             zeros(4, 80, 2, 256, dtype=torch.float32))
     base = zeros(2 * 2 * 64 + 1, dtype=torch.float32)
     with pytest.raises(ValueError, match="16-byte"):
         call(base[1:].view(2, 2, 64), zeros(4, 16, 2, 64,
@@ -665,13 +665,14 @@ def test_split_plan_fills_the_card_at_small_batch():
 
 
 def test_ring_stages_fit_shared_memory():
-    """At least 3 ring slots, at most 8, about 24 KB; a page whose 3-slot
-    ring does not fit a block's shared memory raises."""
-    assert paged_mod._ring_stages(16, 128, 2) == 3      # bf16, d = 128
+    """At least 3 ring slots (each a page's k or v rows), at most 8, about
+    26 KB; a page whose 3-slot ring and scores do not fit a block's shared
+    memory raises."""
+    assert paged_mod._ring_stages(16, 128, 2) == 6      # bf16, d = 128
     assert paged_mod._ring_stages(8, 32, 4) == 8        # f32, d = 32
     assert paged_mod._ring_stages(32, 256, 4) == 3      # f32, d = 256
     with pytest.raises(ValueError, match="block_size"):
-        paged_mod._ring_stages(40, 256, 4)
+        paged_mod._ring_stages(80, 256, 4)
 
 
 def test_lanes_per_row_fill_the_warp_and_bound_registers():

@@ -8,9 +8,16 @@ replica takes the JAX decoder's integer weights, so the 8 chains sent
 through the handle from 8 threads must be bitwise the port's
 ``reference_decode`` and the JAX paged replica's own chains (run
 in-process through its Pallas kernel in interpret mode).
+
+Also: a replica granted the card whose constructor outlasts the
+controller's 5 s health check (a model loading, a card's context
+starting) is kept while it starts, not replaced by a replica that could
+never get the card.
 """
 
+import os
 import threading
+import time
 
 import pytest
 
@@ -84,6 +91,38 @@ def test_paged_decoder_served_through_the_port_runtime(jax_chains):
         # cache's: the shared full blocks of the system prompt and each
         # distinct prompt's own partial last block.
         assert dbg["used"] == len(SYS_PROMPT) // BLOCK + len(REQS)
+    finally:
+        serve.shutdown()
+        ray.shutdown()
+
+
+class _SlowStart:
+    """A replica whose constructor outlasts one health check."""
+
+    def __init__(self, delay):
+        time.sleep(delay)
+
+    def __call__(self, x):
+        return x + 1
+
+    def pid(self):
+        return os.getpid()
+
+
+def test_slow_starting_granted_replica_is_kept(monkeypatch):
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import serve
+
+    monkeypatch.setenv("RAY_TPU_FORCE_NUM_TPUS", "1")
+    ray.init(num_cpus=2)
+    try:
+        dep = serve.deployment(_SlowStart, name="slow-start", num_tpus=1,
+                               max_concurrency=4)
+        handle = serve.run(dep.bind(8.0), name="slow-start")
+        pid = ray.get(handle.method("pid").remote(), timeout=60)
+        assert ray.get([handle.remote(i) for i in range(4)],
+                       timeout=60) == [1, 2, 3, 4]
+        assert ray.get(handle.method("pid").remote(), timeout=60) == pid
     finally:
         serve.shutdown()
         ray.shutdown()
