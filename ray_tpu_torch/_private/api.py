@@ -72,47 +72,30 @@ def _detect_tpu_chips() -> int:
     belong to workers; reference analog: GPU autodetect in
     python/ray/_private/resource_spec.py).  ``RAY_TPU_FORCE_NUM_TPUS``
     overrides the count; otherwise the cards are NVML's (what
-    ``nvidia-smi`` lists), or without NVML the ``/dev/nvidia<N>`` device
-    files this process may open (a container can hold the files of cards
-    it is denied), narrowed by ``CUDA_VISIBLE_DEVICES``."""
+    ``nvidia-smi`` lists: a container may hold device files of cards it
+    is denied), narrowed by ``CUDA_VISIBLE_DEVICES``."""
     import os
 
     if os.environ.get("RAY_TPU_FORCE_NUM_TPUS"):
         return int(os.environ["RAY_TPU_FORCE_NUM_TPUS"])
-    n = _nvml_device_count()
-    if n is None:
-        n = _openable_device_files()
-    return _visible_cards(n, os.environ.get("CUDA_VISIBLE_DEVICES"))
+    return _visible_cards(_nvml_device_count(),
+                          os.environ.get("CUDA_VISIBLE_DEVICES"))
 
 
-def _openable_device_files() -> int:
-    import glob
-    import os
-
-    n = 0
-    for path in glob.glob("/dev/nvidia[0-9]*"):
-        try:
-            os.close(os.open(path, os.O_RDONLY))
-        except OSError:
-            continue
-        n += 1
-    return n
-
-
-def _nvml_device_count() -> Optional[int]:
-    """NVML's card count, or None without a working NVML."""
+def _nvml_device_count() -> int:
+    """NVML's card count (0 without the driver's NVML library)."""
     import ctypes
 
     try:
         nvml = ctypes.CDLL("libnvidia-ml.so.1")
         if nvml.nvmlInit_v2() != 0:
-            return None
+            return 0
         count = ctypes.c_uint(0)
         ok = nvml.nvmlDeviceGetCount_v2(ctypes.byref(count)) == 0
         nvml.nvmlShutdown()
-        return count.value if ok else None
+        return count.value if ok else 0
     except (OSError, AttributeError):
-        return None
+        return 0
 
 
 def _visible_cards(n: int, visible: Optional[str]) -> int:

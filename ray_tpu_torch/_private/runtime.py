@@ -180,7 +180,6 @@ class ActorState:
         self.checkpoint = None
 
 
-
 def _cuda_visible_devices(chips) -> str:
     """``CUDA_VISIBLE_DEVICES`` for a worker granted ``chips`` (indices
     into this process's accelerator pool): each index names the card at

@@ -193,12 +193,11 @@ paged_decode_kernel(const Args a) {
   const size_t BH = (size_t)gridDim.z * H;
   const bool two_pass = a.nsplit > 1;
   // Several splits: split ids in the order the blocks start, so a split's
-  // look-back waits only on splits that are already running.
+  // look-back waits only on splits that are already running.  The id is
+  // first needed by the table loads below: the length and q loads go out
+  // while the atomic is in flight.
   int split = 0;
-  if (two_pass) {
-    if (lane == 0) split = atomicAdd(a.tickets + BH + bh, 1);
-    split = __shfl_sync(FULL, split, 0);
-  }
+  if (two_pass && lane == 0) split = atomicAdd(a.tickets + BH + bh, 1);
   // The ring (which later holds the splits' weights), then the scores and
   // maxima of the pages: every page of the split in two passes, the
   // current page in one.
@@ -222,8 +221,6 @@ paged_decode_kernel(const Args a) {
   // (window 0), else the table's first 32.
   const int cl_b = a.cl[b];
   const int* bt_row = a.bt + (size_t)b * a.max_pages;
-  const int spec0 = a.window > 0 ? 0 : split * a.pps;
-  const int tb_spec = spec0 + lane < a.max_pages ? bt_row[spec0 + lane] : 0;
   float qf[VPL][E];
   const T* q = static_cast<const T*>(a.q) + bh * D;
 #pragma unroll
@@ -235,6 +232,9 @@ paged_decode_kernel(const Args a) {
       for (int e = 0; e < E; ++e) qf[i][e] = 0.f;
     }
   }
+  if (two_pass) split = __shfl_sync(FULL, split, 0);
+  const int spec0 = a.window > 0 ? 0 : split * a.pps;
+  const int tb_spec = spec0 + lane < a.max_pages ? bt_row[spec0 + lane] : 0;
   const uint32_t bar0 = smem_u32(full);
   if (lane == 0) {
     for (int s = 0; s < a.stages; ++s) mbar_init(bar0 + 8 * s, 1);
