@@ -126,15 +126,18 @@ def _profile(torch, run, reps):
     return busy, wall_us
 
 
-def device_ms(torch, run, reps, kernel=None):
+def device_ms(torch, run, reps, kernel=None, tries=5):
     """Device time per call: the profiler's kernel times (only kernels
-    whose name holds ``kernel`` when given).  Raises when two profiled
-    runs record no such kernel: a host-clock time is no device time."""
-    for _ in range(2):
+    whose name holds ``kernel`` when given).  A profiled run now and then
+    records no kernel at all (logged); raises when ``tries`` runs in a row
+    record no such kernel: a host-clock time is no device time."""
+    for i in range(tries):
         busy, _ = _profile(torch, run, reps)
         us = sum(t for k, t in busy.items() if kernel is None or kernel in k)
         if us:
             return us / 1e3
+        log(f"profiled run {i + 1} of {tries} recorded no device time for "
+            f"{kernel or 'the call'} ({len(busy)} device records)")
     raise RuntimeError(f"the profiler recorded no device time for "
                        f"{kernel or 'the call'}")
 
