@@ -65,7 +65,7 @@ class ClientRuntime(_WorkerRuntime):
         self._authkey = b""
         # Buffered small ("put", ...)/("addref", ...) message pairs:
         # many tiny puts ride out as one pickle+write instead of one
-        # each (PR 2's conflation envelope, applied to the put path).
+        # each (the conflation envelope, applied to the put path).
         self._put_buf: list = []
         self._put_buf_bytes = 0
         self._put_lock = threading.Lock()  # lock-order: leaf

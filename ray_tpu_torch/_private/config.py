@@ -233,7 +233,7 @@ class Config:
     # kv_cache.PagedKVEngine gets block-granular admission (a request is
     # admitted when its KV BLOCKS fit, not a max-length slot) and the
     # paged decode mode in replicas that support it
-    # (serve/tpu_replica.py).  Off = the byte-identical PR 8 dense
+    # (serve/tpu_replica.py).  Off = the byte-identical dense
     # engine: the attached engine is ignored, every serving-memory
     # counter (kv_blocks_* / prefix_* / spec_* / cow_copies) stays zero.
     # Read in the REPLICA process (rides _worker_config_env).
@@ -452,8 +452,8 @@ class Config:
     head_reconnect_grace_s: float = 20.0
     # How long a RESTARTED head waits for restored nodes, leases, and
     # actor incarnations to be re-claimed by reconnecting peers before
-    # reconciling the remainder: unclaimed leases are revoked (the PR 6
-    # path), unclaimed restored actors are re-created from their last
+    # reconciling the remainder: unclaimed leases are revoked (the
+    # revocation path), unclaimed restored actors are re-created from their last
     # __ray_save__ checkpoint, and unresolved blip-window objects fail
     # as reconstruction candidates.
     head_reregister_timeout_s: float = 10.0

@@ -22,8 +22,8 @@ Env contract (all optional unless noted):
   named actors in-head).
 - ``RAY_TPU_CHAOS`` — ``head:<point>:<n>`` rules arm deterministic
   self-kills at head syncpoints (``head:snapshot:n``,
-  ``head:dispatch:n``); workers and agents have armed theirs since
-  PR 9, the head process now does too.
+  ``head:dispatch:n``); workers and agents arm theirs too, and
+  so does the head process.
 """
 
 from __future__ import annotations

@@ -115,8 +115,8 @@ class Verb(NamedTuple):
     object_transfer/shm_store).  ``arity`` is the legal tuple length
     INCLUDING the verb tag, as an inclusive (min, max) — ``None`` means
     deliberately variable (the per-exchange ``ok`` replies).  ``caps``
-    names the capability family that must gate every send (the PR 3/6/7
-    "never probe an old peer" convention).  ``external`` marks verbs
+    names the capability family that must gate every send (the "never
+    probe an old peer" convention).  ``external`` marks verbs
     whose peers live outside the analyzed tree (legacy spellings,
     dynamically-built envelopes) so the whole-program liveness check
     skips them."""
@@ -334,7 +334,7 @@ VERBS = {
                          "threshold"),
     # -- elastic pods: preemption-aware drain (caps family "drain_caps":
     # agents advertise it in agent_ready, the head advertises it back in
-    # the agent_ack config dict — the PR 3 "never probe an old peer"
+    # the agent_ack config dict — the "never probe an old peer"
     # convention) --------------------------------------------------------
     "preempt_notice": Verb(("agent",), ("head",), (3, 3),
                            "agent got a preemption warning (SIGTERM / "

@@ -1008,7 +1008,7 @@ class Runtime:
         protocol (reference: gcs_node_manager DrainNode RPC + the
         raylet's drain state).  Within the deadline: (1) stop new
         placements (``node.draining`` — can_fit refuses), (2) revoke the
-        node's outbound leases through the PR 6 revocation path so
+        node's outbound leases through the lease revocation path so
         holders reroute now, (3) steal queued-but-unstarted head tasks
         back and wait for the rest to finish, (4) force-checkpoint its
         restartable actors onto a SURVIVING store (``checkpoint_now`` →
@@ -1107,7 +1107,7 @@ class Runtime:
             # Release the agent (it exits cleanly; sent even after a
             # timeout — best effort beats nothing, and the hard-kill
             # recovery covers whatever was left).  Caps-gated per the
-            # PR 3 convention: an old agent that would ignore the verb
+            # Capability convention: an old agent that would ignore the verb
             # is never probed — its node falls to the legacy teardown.
             agent_drain_caps = tuple(agent.info.get("agent_caps") or ())
             if "drain_node" in agent_drain_caps:
@@ -1230,7 +1230,7 @@ class Runtime:
 
         # The pulls are independent and all race the SAME closing
         # deadline: overlap them (the node's object server already
-        # serves concurrent getparts — PR 7's striped pull is built on
+        # serves concurrent getparts — the striped pull is built on
         # it) so N victims cost ~N/pool transfers instead of a straight
         # sum that turns a beatable spot warning window into a
         # drain_timeout + avoidable reconstructions.
@@ -3941,7 +3941,7 @@ class Runtime:
         - Restored agent NODES come back not-alive under their old ids;
           a reconnecting agent re-claims its node by store id.  Nodes
           that miss the grace window stay dead (their objects surface as
-          losses lazily, the PR 9 reconstruction candidates).
+          losses lazily, the reconstruction candidates).
         - Restored OBJECTS come back READY with a permanent failover pin
           (pins=1): exact refcounts died with the old head, so the safe
           direction is leak-until-shutdown, never free-early.
@@ -3950,7 +3950,7 @@ class Runtime:
           at the grace deadline from their creation spec, restoring the
           last ``__ray_save__`` checkpoint over ``__init__``.
         - Restored LEASES re-bind when both sides re-register; the
-          remainder is revoked through the PR 6 path at the deadline.
+          remainder is revoked through the revocation path at the deadline.
         """
         v2 = data.get("version", 1) >= 2
         # Crash restores WAIT for surviving peers to re-register
@@ -4065,7 +4065,7 @@ class Runtime:
                 if w is None or w.dead or w.client_lease is not None:
                     continue  # never re-registered, or already re-bound
                 # Worker came back but its holder missed the window:
-                # revoke through the PR 6 path so the slot frees.
+                # revoke through the revocation path so the slot frees.
                 self.lease_revocations += 1
                 lease_rows.append((w, holder))
             missed = {sid: n for sid, n in self._awaiting_nodes.items()
@@ -4866,7 +4866,7 @@ class Runtime:
             # The table entry registers PENDING under the lock here (so
             # later messages on this FIFO see the object), but the
             # multi-hundred-MB assembly memcpy runs OFF this reader
-            # thread and outside the runtime lock — the PR 6 lock-hold
+            # thread and outside the runtime lock — the lock-hold
             # convention: the lock is held only for table registration.
             _, oid_bin, meta, bufs, nested = msg
             oid = ObjectID(oid_bin)

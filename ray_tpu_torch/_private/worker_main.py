@@ -519,7 +519,7 @@ class _WorkerRuntime:
         net_stall_timeout_s under total head silence probes with
         hc_ping, and a probe unanswered for another full window closes
         the conn, converting the gray stall into the clean EOF the
-        reconnect-and-replay machinery (PR 10) already survives."""
+        reconnect-and-replay machinery already survives."""
         if not self._fd_on or self._shutting_down or self._conn_down:
             return
         now = time.monotonic()

@@ -339,7 +339,7 @@ class ServeController:
             opts["num_tpus"] = d["num_tpus"]
         # Extra actor options (elastic pods: a preemption-tolerant
         # deployment sets {"max_restarts": -1, "max_task_retries": -1}
-        # so replicas ride the PR 9 restart + in-flight replay path
+        # so replicas ride the actor restart + in-flight replay path
         # instead of failing requests at the controller's replacement
         # latency).
         opts.update(d.get("ray_actor_options") or {})
