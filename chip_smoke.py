@@ -66,9 +66,10 @@ Phases, each fatal on failure:
    the first request's latency and the 16 requests' wall time.
 
 Launch counts are set to 0 just before each main path and read just after
-it (in path 4, in the replica's process, through its probe).  Prints the kernels line, then as its last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
-there is no card or the port is not beside this script.
+it (in path 4, in the replica's process, through its probe).  Prints the
+kernels line, then as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result, when there is no card or the port is not
+beside this script.
 """
 
 import dataclasses
@@ -773,6 +774,9 @@ def runtime_serve_phase(torch, smi):
         import torch as t
         return os.environ.get("CUDA_VISIBLE_DEVICES"), t.cuda.is_available()
 
+    # The card a one-card grant names: this process's first visible card.
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES") or "0"
+    card = visible.split(",")[0].strip()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ray_tpu_torch.init(num_cpus=4, _system_config={
@@ -790,7 +794,7 @@ def runtime_serve_phase(torch, smi):
             timeout=300)
         log(f"runtime: granted task in pid {pid} saw CUDA_VISIBLE_DEVICES="
             f"{cvd!r}, {name} ({time.perf_counter() - t0} s)")
-        check(cvd == "0" and name == torch.cuda.get_device_name(0)
+        check(cvd == card and name == torch.cuda.get_device_name(0)
               and pid != os.getpid(), "granted task did not see the card")
         cvd, avail = ray_tpu_torch.get(
             ray_tpu_torch.remote(cpu_probe).remote(), timeout=300)
@@ -842,7 +846,7 @@ def runtime_serve_phase(torch, smi):
             f"prefix_hits {dbg['prefix_hits']}, spec accepted "
             f"{dbg['spec_accepted']}/{dbg['spec_proposed']}; every chain "
             f"bitwise reference_decode")
-        check(after["pid"] != os.getpid() and after["cvd"] == "0"
+        check(after["pid"] != os.getpid() and after["cvd"] == card
               and after["device"] == "cuda",
               f"the replica is not in a worker granted the card: {after}")
         check(after["launches"] > 0, "K4 never launched in the replica")
