@@ -65,8 +65,34 @@ Phases, each fatal on failure:
    launched there.  Logs the deploy time (worker spawn + replica start),
    the first request's latency and the 16 requests' wall time.
 
+10. Main path 5, disaggregated serving.  In this process: a prefill and
+   a decode replica on the card; ``prefill_export`` (an inline
+   descriptor), ``_open_chain`` and the decode of the adopted chain give
+   16 chains over 4 shared 20-token prefixes, every one bitwise
+   ``reference_decode``, all 16 imported, K4 launched on the imported
+   pages.  Through the runtime (``disaggregated_serving`` on): the decode
+   pool (``role="decode"``, ``num_tpus=1``) in a worker granted the card,
+   the prefill pool (``role="prefill"``, ``num_tpus=0``, ``device="cpu"``:
+   one card cannot hold two granted replicas); the same 16 requests
+   through the handle, request 0 with the ``_timing`` probe: every chain
+   bitwise, the decode replica's ``kv_debug`` with 16 chains imported and
+   its blocks whole, the prefill replica with no export outstanding and
+   chains streamed over the node store, K4 launched in the decode
+   replica's process.  Logs the deploy time, the first request's latency,
+   the wall time and the TTFT.
+11. Main path 6, the trainer through the runtime:
+   ``DataParallelTrainer(..., TorchConfig(), ScalingConfig(num_workers=1,
+   tpu_chips_per_worker=1))``; the loop takes phase 8's flagship state
+   and batch for 4 steps and reports each; the worker sees the card, its
+   process group is NCCL of world size 1, the first loss is within 1e-3
+   of phase 8's, the loss falls, K1/K2/K3 launched 96/48/48 times in the
+   worker (and a profile of one step there shows 24/12/12), and the last
+   report's checkpoint (params and their bf16 head) reaches the driver
+   with every leaf's digest equal.  Logs ms per step (median of steps
+   2-4), the worker's start and fit()'s wall time.
+
 Launch counts are set to 0 just before each main path and read just after
-it (in path 4, in the replica's process, through its probe).  Prints the
+it (in paths 4-6, in the replica's or the trainer's process).  Prints the
 kernels line, then as its last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when there is no card or the port is not
 beside this script.
@@ -697,7 +723,7 @@ def train_phase(torch, n=8):
     busy = profile_run(torch, lambda: step(state, batch), "step", top=12)
     return dict(zip(keys, launches)), kernels_in_path(
         busy, {"flash_fwd_kernel": 2 * L, "flash_dkdv_kernel": L,
-               "flash_dq_kernel": L}, "step")
+               "flash_dq_kernel": L}, "step"), losses[0]
 
 
 def serve_phase(torch):
@@ -743,18 +769,15 @@ def serve_phase(torch):
     return launches
 
 
-def runtime_serve_phase(torch, smi):
-    """Main path 4: phase 7's decoder served by the port's runtime from a
-    worker granted the card."""
+def probed_decoder():
+    """The port's decoder with a ``probe`` method: the replica's process,
+    card and K4 launch count (``reset`` sets the count to 0)."""
     import os
 
-    import ray_tpu_torch
-    from ray_tpu_torch import serve
     from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
 
     class ProbedDecoder(MeshShardedDecoder):
         def probe(self, reset=False):
-            """The replica's process, card and K4 launch count."""
             from ray_tpu_torch.ops import _build
 
             out = {"pid": os.getpid(),
@@ -765,6 +788,29 @@ def runtime_serve_phase(torch, smi):
                 _build.reset_launches()
             return out
 
+    return ProbedDecoder
+
+
+def first_visible_card():
+    """The card a one-card grant names: this process's first visible
+    card."""
+    import os
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES") or "0"
+    return visible.split(",")[0].strip()
+
+
+def runtime_serve_phase(torch, smi):
+    """Main path 4: phase 7's decoder served by the port's runtime from a
+    worker granted the card."""
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    ProbedDecoder = probed_decoder()
+
     def grant_probe():
         import torch as t
         return (os.environ.get("CUDA_VISIBLE_DEVICES"),
@@ -774,9 +820,7 @@ def runtime_serve_phase(torch, smi):
         import torch as t
         return os.environ.get("CUDA_VISIBLE_DEVICES"), t.cuda.is_available()
 
-    # The card a one-card grant names: this process's first visible card.
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES") or "0"
-    card = visible.split(",")[0].strip()
+    card = first_visible_card()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ray_tpu_torch.init(num_cpus=4, _system_config={
@@ -860,6 +904,381 @@ def runtime_serve_phase(torch, smi):
         ray_tpu_torch.shutdown()
 
 
+def disagg_requests():
+    """Phase 10's 16 requests: 4 shared 20-token prefixes, each request
+    its own two last tokens (so every chain is imported, past the prefix
+    cache's hit on the shared blocks)."""
+    systems = [[(20 * j + t) % 64 for t in range(20)] for j in range(4)]
+    return [{"prompt": systems[i % 4] + [32 + i % 32, i],
+             "tokens": 3 + i % 10} for i in range(16)]
+
+
+def run_threads(fn, n, timeout=300):
+    """``fn(i)`` for i < n, each in its own thread; raises the first
+    error any of them raised, or if one hung."""
+    errors = []
+
+    def body(i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    check(not any(t.is_alive() for t in threads), "requests hung")
+    if errors:
+        raise errors[0]
+
+
+def disagg_inprocess_phase(torch):
+    """Main path 5a: the disaggregated handoff in this process, a prefill
+    and a decode replica on the card: ``prefill_export`` (inline
+    descriptor), ``_open_chain`` and the decode of the adopted chain."""
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    GLOBAL_CONFIG.paged_kv = True
+    GLOBAL_CONFIG.prefix_caching = True
+    GLOBAL_CONFIG.speculative_k = 3
+    pre = MeshShardedDecoder(kv_blocks=128)
+    dec = MeshShardedDecoder(kv_blocks=128)
+    reqs = disagg_requests()
+    out, kinds = [None] * len(reqs), [None] * len(reqs)
+
+    def client(i):
+        descr, _ = pre.prefill_export(reqs[i])
+        kinds[i] = descr[0]
+        out[i] = dec._decode({**reqs[i], "_import": dec._open_chain(descr)})
+
+    _build.reset_launches()                       # main path 5a starts
+    t0 = time.perf_counter()
+    run_threads(client, len(reqs))
+    wall = time.perf_counter() - t0
+    launches = _build.launches["paged_decode"]    # main path 5a ends
+    for r, got in zip(reqs, out):
+        check(got == dec.reference_decode(r["prompt"], r["tokens"]),
+              f"adopted chain differs from reference_decode for {r}")
+    dbg, pdbg = dec.kv_debug(), pre.kv_debug()
+    log(f"disaggregated in-process: 16 chains over 4 shared prefixes "
+        f"({set(kinds)} descriptors), wall {wall} s; decode replica "
+        f"kv_chains_imported {dbg['kv_chains_imported']}, used "
+        f"{dbg['used']} + available {dbg['available']}, prefix_hits "
+        f"{dbg['prefix_hits']}; prefill replica exports_outstanding "
+        f"{pdbg['exports_outstanding']}; K4 launches {launches}; every "
+        f"chain bitwise reference_decode")
+    check(kinds == ["inline"] * len(reqs), f"descriptors {kinds}")
+    check(dbg["kv_chains_imported"] == len(reqs), "chains not imported")
+    check(dbg["used"] + dbg["available"] == 128, f"decode blocks: {dbg}")
+    check(pdbg["exports_outstanding"] == 0, f"exports left: {pdbg}")
+    check(launches > 0, "K4 never launched on the imported pages")
+    return launches
+
+
+def disagg_runtime_phase(torch, smi):
+    """Main path 5b: disaggregated serving through the port's runtime.
+    The decode pool (``role="decode"``) is granted the card; the prefill
+    pool (``role="prefill"``, ``num_tpus=0``) asks for the CPU by name, as
+    one card cannot hold two granted replicas.  The chains cross the
+    node store between the two workers."""
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.api import CONTROLLER_NAME, PREFILL_SUFFIX
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    ProbedDecoder = probed_decoder()
+    card = first_visible_card()
+    torch.cuda.empty_cache()
+    ray_tpu_torch.init(num_cpus=4, _system_config={
+        "paged_kv": True, "prefix_caching": True, "speculative_k": 3,
+        "disaggregated_serving": True})
+    try:
+        t0 = time.perf_counter()
+        serve.run(serve.deployment(
+            ProbedDecoder, name="disagg", role="prefill", num_tpus=0,
+            max_concurrency=16).bind(kv_blocks=128, device="cpu"),
+            name="disagg")
+        run_s = [time.perf_counter() - t0]
+        handle = serve.run(serve.deployment(
+            ProbedDecoder, name="disagg", role="decode", num_tpus=1,
+            max_concurrency=16).bind(kv_blocks=128), name="disagg")
+        run_s.append(time.perf_counter() - t0 - run_s[0])
+        ctrl = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+        _, reps, _ = ray_tpu_torch.get(ctrl.handle_snapshot.remote(
+            "disagg" + PREFILL_SUFFIX), timeout=60)
+        check(len(reps) == 1, f"prefill pool {reps}")
+        prefill_rep = reps[0]
+
+        def on_prefill(method, *args):
+            return ray_tpu_torch.get(prefill_rep.call_method.remote(
+                method, args, {}), timeout=300)
+
+        pre_probe = on_prefill("probe")
+        before = ray_tpu_torch.get(handle.method("probe").remote(reset=True),
+                                   timeout=300)
+        deploy_s = time.perf_counter() - t0
+        reqs = disagg_requests()
+        # Request 0 also carries the time-to-first-token probe.
+        reqs[0] = dict(reqs[0], _timing=True)
+        out, lat = [None] * len(reqs), [None] * len(reqs)
+
+        def client(i):
+            c0 = time.perf_counter()
+            body = dict(reqs[i], _t0=time.time()) if i == 0 else reqs[i]
+            out[i] = ray_tpu_torch.get(handle.remote(body), timeout=300)
+            lat[i] = time.perf_counter() - c0
+
+        t0 = time.perf_counter()                  # main path 5b starts
+        run_threads(client, len(reqs))
+        wall = time.perf_counter() - t0
+        after = ray_tpu_torch.get(handle.method("probe").remote(),
+                                  timeout=300)    # main path 5b ends
+        check(isinstance(out[0], dict) and set(out[0]) == {"tokens", "ttft"},
+              f"the _timing request returned {out[0]!r}")
+        ttft = out[0]["ttft"]
+        out[0] = out[0]["tokens"]
+        ref = MeshShardedDecoder(device="cpu")
+        for r, got in zip(reqs, out):
+            check(got == ref.reference_decode(r["prompt"], r["tokens"]),
+                  f"disaggregated chain differs from reference_decode "
+                  f"for {r}")
+        dbg = ray_tpu_torch.get(handle.method("kv_debug").remote(),
+                                timeout=300)
+        pdbg = on_prefill("kv_debug")
+        log(f"disaggregated runtime: decode replica pid {after['pid']} "
+            f"(driver {os.getpid()}), CUDA_VISIBLE_DEVICES={after['cvd']!r}, "
+            f"tensors on {after['device']}, K4 launches {after['launches']} "
+            f"(reset from {before['launches']}); kv_chains_imported "
+            f"{dbg['kv_chains_imported']}, used {dbg['used']} + available "
+            f"{dbg['available']} of {dbg['kv_blocks_total']}, role "
+            f"{dbg['role']}; prefill replica pid {pre_probe['pid']}, "
+            f"CUDA_VISIBLE_DEVICES={pre_probe['cvd']!r}, tensors on "
+            f"{pre_probe['device']}, role {pdbg['role']}, "
+            f"kv_chains_exported {pdbg['kv_chains_exported']}, bytes "
+            f"streamed {pdbg['kv_chain_bytes_streamed']}, inline "
+            f"fallbacks {pdbg['chain']['inline_fallbacks']}, "
+            f"exports_outstanding {pdbg['exports_outstanding']}; every "
+            f"chain bitwise reference_decode")
+        check(dbg["role"] == "decode" and pdbg["role"] == "prefill",
+              "pool roles")
+        check(dbg["kv_chains_imported"] == len(reqs),
+              f"decode replica imported {dbg['kv_chains_imported']} chains")
+        check(dbg["used"] + dbg["available"] == dbg["kv_blocks_total"]
+              == 128, f"decode replica's kv_debug: {dbg}")
+        check(pdbg["exports_outstanding"] == 0, f"exports left: {pdbg}")
+        check(pdbg["chain"]["inline_fallbacks"] < len(reqs)
+              and pdbg["kv_chain_bytes_streamed"] > 0,
+              "no chain crossed the node store")
+        check(after["pid"] != os.getpid() and after["cvd"] == card
+              and after["device"] == "cuda",
+              f"the decode replica is not in a worker granted the card: "
+              f"{after}")
+        check(pre_probe["pid"] not in (os.getpid(), after["pid"])
+              and pre_probe["device"] == "cpu",
+              f"the prefill replica: {pre_probe}")
+        check(after["launches"] > 0, "K4 never launched in the decode "
+              "replica")
+        log(f"disaggregated runtime serve on {smi}: deploy (two workers "
+            f"spawned + replicas started) {deploy_s} s (serve.run of the "
+            f"prefill pool {run_s[0]} s, of the decode pool {run_s[1]} s, "
+            f"then both replicas' first answers); first request's "
+            f"latency {lat[0]} s (min {min(lat)}, max {max(lat)}); 16 "
+            f"requests, {sum(len(o) for o in out)} tokens, wall {wall} s; "
+            f"_timing TTFT of request 0 {ttft} s")
+        return after["launches"]
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+
+TRAINER_STEPS = 4
+
+
+def leaf_digest(t):
+    """sha256 of a CPU tensor's bytes (bf16 by its 16-bit pattern)."""
+    import hashlib
+
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def trainer_loop(config):
+    """Runs in the trainer's worker: phase 8's flagship state and batch,
+    ``TRAINER_STEPS`` steps of the port's train step, each reported; the
+    last report carries the params' checkpoint and a digest of each
+    leaf.  Counts K1-K3 launches in this process and profiles the first
+    step (or the next, if a profile records no device time)."""
+    import os
+    import time as _time
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.train import (
+        default_optimizer, init_train_state, make_train_step)
+    from ray_tpu_torch.train.core import tree_map
+
+    t_start = _time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    cfg = _flagship_cfg()
+    opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+    state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                             .manual_seed(0), dev)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (4, 513), dtype=torch.int64, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}
+    step = make_train_step(cfg, opt)
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    names = ("flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel")
+    profiled = None
+    _build.reset_launches()                       # the trainer's path starts
+    for i in range(config["steps"]):
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        prof_s = 0.0
+        if profiled is None:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                step_s = _time.perf_counter() - t0
+            recs = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            prof_s = _time.perf_counter() - t0 - step_s
+            if recs:
+                profiled = {"step": i + 1, "busy_ms": sum(
+                    e.self_device_time_total for e in recs) / 1e3}
+                for n in names + ("nccl",):
+                    hit = [e for e in recs if n in e.key.lower()]
+                    profiled[n] = {
+                        "count": sum(e.count for e in hit),
+                        "ms": sum(e.self_device_time_total
+                                  for e in hit) / 1e3}
+        else:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_s = _time.perf_counter() - t0
+        report = {"step": i + 1, "loss": float(m["loss"]),
+                  "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+                  "profile_s": prof_s, "pid": os.getpid(),
+                  "cvd": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                  "backend": dist.get_backend(),
+                  "world": dist.get_world_size(),
+                  "launches": {k: _build.launches[k] for k in keys},
+                  "loop_start": t_start}
+        ckpt = None
+        if i + 1 == config["steps"]:              # the trainer's path ends
+            # The params, and the bf16 head weights the forward multiplies
+            # by, as CPU tensors.
+            tree = {"params": tree_map(lambda t: t.detach().cpu(),
+                                       state.params)}
+            tree["lm_head_bf16"] = tree["params"]["lm_head"].to(
+                torch.bfloat16)
+            report["digests"] = tree_map(leaf_digest, tree)
+            report["profiled"] = profiled
+            ckpt = Checkpoint.from_dict({"step": i + 1, **tree})
+        session.report(report, checkpoint=ckpt)
+
+
+def trainer_phase(torch, smi, loss0_phase8):
+    """Main path 6: the data-parallel trainer through the port's runtime:
+    one worker granted the card, ``TorchConfig()`` (an NCCL group of
+    world size 1), the flagship at full width for ``TRAINER_STEPS``
+    steps."""
+    import os
+    import statistics
+
+    import ray_tpu_torch
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.train import DataParallelTrainer, TorchConfig
+    from ray_tpu_torch.train.core import tree_leaves, tree_map
+
+    card = first_visible_card()
+    L = _flagship_cfg().num_layers
+    torch.cuda.empty_cache()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        trainer = DataParallelTrainer(
+            trainer_loop, train_loop_config={"steps": TRAINER_STEPS},
+            backend_config=TorchConfig(),
+            scaling_config=ScalingConfig(num_workers=1,
+                                         tpu_chips_per_worker=1))
+        t_fit = time.time()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+    check(result.error is None, f"fit() failed: {result.error!r}")
+    hist = result.metrics_history
+    check(len(hist) == TRAINER_STEPS, f"{len(hist)} reports")
+    last = hist[-1]
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
+    launches = last["launches"]
+    prof = last["profiled"]
+    got = result.checkpoint.to_dict()
+    digests = tree_map(leaf_digest, {k: got[k] for k in ("params",
+                                                          "lm_head_bf16")})
+    log(f"trainer worker pid {last['pid']} (driver {os.getpid()}), "
+        f"CUDA_VISIBLE_DEVICES={last['cvd']!r}, process group "
+        f"{last['backend']} world size {last['world']}; losses {losses} "
+        f"(phase 8's first {loss0_phase8}); K1/K2/K3 launches "
+        f"{[launches[k] for k in ('flash_fwd', 'flash_dkdv', 'flash_dq')]} "
+        f"in {TRAINER_STEPS} steps; profile of step {prof and prof['step']}"
+        f": {prof}")
+    leaves = tree_leaves({k: got[k] for k in ("params", "lm_head_bf16")})
+    log(f"trainer checkpoint: {len(leaves)} leaves "
+        f"({sorted({str(t.dtype) for t in leaves})}, "
+        f"{sum(t.numel() * t.element_size() for t in leaves)} B), every "
+        f"leaf's digest equal to the worker's: {digests == last['digests']}")
+    check(last["pid"] != os.getpid() and last["cvd"] == card,
+          f"the trainer worker is not granted the card: {last}")
+    check(last["backend"] == "nccl" and last["world"] == 1,
+          f"process group {last['backend']} world {last['world']}")
+    check(abs(losses[0] - loss0_phase8) <= 1e-3,
+          f"first trainer loss {losses[0]} vs phase 8's {loss0_phase8}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "the trainer's loss did not fall")
+    want = [2 * L * TRAINER_STEPS, L * TRAINER_STEPS, L * TRAINER_STEPS]
+    check([launches[k] for k in ("flash_fwd", "flash_dkdv", "flash_dq")]
+          == want, f"K1/K2/K3 launches in the worker {launches}, expected "
+          f"{want}")
+    check(prof is not None and [prof[n]["count"] for n in (
+        "flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel")]
+        == [2 * L, L, L], f"the worker's profile: {prof}")
+    check(got["step"] == TRAINER_STEPS and digests == last["digests"]
+          and got["lm_head_bf16"].dtype == torch.bfloat16,
+          "the checkpoint did not round-trip")
+    log(f"trainer through the runtime on {smi}: {step_ms} ms per step "
+        f"(median of steps 2-{TRAINER_STEPS}; all "
+        f"{[h['step_s'] * 1e3 for h in hist]} ms, the profiler's own "
+        f"{[h['profile_s'] * 1e3 for h in hist]} ms beside them), worker "
+        f"start (fit() to the loop's first line: placement group, spawn, "
+        f"torch, NCCL group) {last['loop_start'] - t_fit} s, fit() wall "
+        f"{fit_s} s")
+    return {"flash_fwd": launches["flash_fwd"],
+            "flash_dkdv": launches["flash_dkdv"],
+            "flash_dq": launches["flash_dq"]}
+
+
 def main():
     import torch
 
@@ -897,12 +1316,18 @@ def main():
     k4 = k4_phase(torch, dev)
     k1["launches"], (in_forward, k1["forward_busy_ms"]) = llama_phase(torch)
     k4["launches"] = serve_phase(torch)
-    train, (in_step, step_busy) = train_phase(torch)
+    train, (in_step, step_busy), loss0 = train_phase(torch)
     runtime_serve_phase(torch, smi)
+    k4["launches_disagg_in_process"] = disagg_inprocess_phase(torch)
+    k4["launches_disagg"] = disagg_runtime_phase(torch, smi)
+    trainer = trainer_phase(torch, smi, loss0)
     k1.update(in_forward["flash_fwd_kernel"],
-              **in_step["flash_fwd_kernel"], step_busy_ms=step_busy)
-    k2.update(in_step["flash_dkdv_kernel"], launches=train["flash_dkdv"])
-    k3.update(in_step["flash_dq_kernel"], launches=train["flash_dq"])
+              **in_step["flash_fwd_kernel"], step_busy_ms=step_busy,
+              launches_trainer=trainer["flash_fwd"])
+    k2.update(in_step["flash_dkdv_kernel"], launches=train["flash_dkdv"],
+              launches_trainer=trainer["flash_dkdv"])
+    k3.update(in_step["flash_dq_kernel"], launches=train["flash_dq"],
+              launches_trainer=trainer["flash_dq"])
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

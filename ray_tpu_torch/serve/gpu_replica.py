@@ -27,28 +27,43 @@ the previous step's tokens (dense), the gathered last rows and the verify
 step's argmax (paged).  All launches go to the current stream of the
 scheduler thread.
 
+Disaggregated serving (``disaggregated_serving`` knob): the same class
+serves both halves of a split tier, as in the reference.  A prefill
+replica admits a request tagged ``_prefill_only``: its prompt blocks are
+written, the chain registered, and the slot finishes in the same step
+with a pinned ``ChainExport``.  ``prefill_export`` gathers the chain's
+pages from the card in one indexed read and one copy to the host, and
+``_stream_chain`` lands them (numpy) in the decode replica's node store
+over the copied object plane (``put_local`` on the same node, the pusher
+to a peer store, an ``("inline", payload)`` descriptor when neither is
+reachable).  A decode replica (``disagg_generate``) opens the chain and
+adopts it: the join writes the exported page rows, not recomputed
+embeddings, into normally admitted blocks, so the decoded chain stays
+bitwise the monolithic one.
+
 Request format: ``{"prompt": int | [int, ...], "tokens": int}`` -> list of
 ``tokens`` greedily decoded ids (the dense path continues from the LAST
-prompt token).  The control-plane methods (``set_serve_role``,
-``kv_ingest_info``, ``kv_debug``) are the reference's; the disaggregated
-prefill/decode handoff (``prefill_export``, ``disagg_generate``) is a
-later slice.
+prompt token).  A request carrying ``"_timing": True`` (and a client
+``"_t0"`` wall clock) finishes with ``{"tokens": [...], "ttft":
+seconds}`` instead: the time-to-first-token probe.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import segment_stream
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
 from ray_tpu_torch.serve.batching import batch
-from ray_tpu_torch.serve.kv_cache import PagedKVEngine
+from ray_tpu_torch.serve.kv_cache import ChainExport, PagedKVEngine
 
 MAX_BATCH = 8
 
@@ -78,7 +93,7 @@ class MeshShardedDecoder:
                  prefix_caching: Optional[bool] = None,
                  use_kernel: bool = True,
                  weights: Optional[Dict[str, Any]] = None,
-                 device=None):
+                 device=None, prefill_ms_per_token: float = 0.0):
         self._dev = resolve_device(device)
         if weights is None:
             w, emb, wd = _integer_weights(embed, vocab, seed)
@@ -101,7 +116,12 @@ class MeshShardedDecoder:
         self._rows: List[Optional[Any]] = [None] * MAX_BATCH
         # Last dispatched dense step: (tokens on the card, [(row, slot)]).
         self._pending = None
-        # Control-plane state (set_serve_role, kv_ingest_info, kv_debug).
+        # Synthetic prefill cost (ms per prompt token written by
+        # recomputed prefill; imported chains paid theirs on the prefill
+        # replica).  0 = off.
+        self._prefill_ms = max(0.0, float(prefill_ms_per_token))
+        # Control-plane state (set_serve_role, kv_ingest_info, kv_debug)
+        # and the handoff's fallback/retry counters.
         self._serve_role: Optional[str] = None
         self._ingest_info: Optional[Dict[str, Any]] = None
         self._chain_stats = {"inline_fallbacks": 0, "handoff_retries": 0}
@@ -134,13 +154,17 @@ class MeshShardedDecoder:
 
     # -- paged-mode helpers -------------------------------------------------
     def _tokens_for(self, request) -> Any:
-        """Admission sizing hook: (prompt token tuple, max new tokens)."""
+        """Admission sizing hook: (prompt token tuple, max new tokens).
+        Prefill-only requests (the disaggregated handoff) reserve zero
+        decode tokens: their slot finishes in its own join step."""
         body = request or {}
         prompt = body.get("prompt", 0)
         if isinstance(prompt, (list, tuple)):
             ids = tuple(int(t) % self._vocab for t in prompt) or (0,)
         else:
             ids = (int(prompt) % self._vocab,)
+        if body.get("_prefill_only"):
+            return ids, 0
         return ids, max(1, int(body.get("tokens", 1)))
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -240,26 +264,50 @@ class MeshShardedDecoder:
         # from the prefix cache and never rewritten.
         cow, wb, wo, wv = [], [], [], []
         joiners = []
+        n_prefill_toks = 0
         for s in slots:
             if s.state is not None:
                 continue
             kvp = s.kv
+            imp = (s.request or {}).get("_import")
             s.state = {"pos": len(kvp.prompt), "out": [],
-                       "need": kvp.max_new, "last": kvp.prompt[-1]}
+                       "need": kvp.max_new,
+                       "last": (int(imp["last"]) if imp is not None
+                                else kvp.prompt[-1])}
             lo = kvp.n_cached
             if lo < len(kvp.prompt):
                 writes, cw = eng.plan_writes(s, lo, len(kvp.prompt) - lo)
                 cow += cw
-                for (blk, off), tok in zip(writes, kvp.prompt[lo:]):
-                    wb.append(blk)
-                    wo.append(off)
-                    wv.append(self._emb_host[tok])
+                if imp is not None:
+                    # Streamed-chain adoption: the value rows come from
+                    # the prefill replica's exported pages, not from
+                    # recomputed embeddings.
+                    pages, sbs = imp["pages"], int(imp["src_bs"])
+                    for (blk, off), p in zip(
+                            writes, range(lo, len(kvp.prompt))):
+                        wb.append(blk)
+                        wo.append(off)
+                        wv.append(pages[p // sbs, p % sbs, 0])
+                    eng.note_chain_imported()
+                else:
+                    for (blk, off), tok in zip(writes, kvp.prompt[lo:]):
+                        wb.append(blk)
+                        wo.append(off)
+                        wv.append(self._emb_host[tok])
+                    n_prefill_toks += len(kvp.prompt) - lo
             joiners.append(s)
+        if n_prefill_toks and self._prefill_ms:
+            # Synthetic prefill compute: the whole step stalls behind it.
+            time.sleep(self._prefill_ms * n_prefill_toks / 1000.0)
         self._apply_cache_writes(cow, wb, wo, wv)
         for s in joiners:
             # Publish AFTER the prefill writes: a prefix-cache entry must
             # never alias unwritten blocks.
             eng.register_prefix(s)
+            if (s.request or {}).get("_prefill_only") and not s.finished:
+                # A prefill-only slot finishes now with its chain pinned
+                # for streaming: prefill replicas run prompt-only steps.
+                s.finish(eng.export_chain(s))
         live = [s for s in slots if not s.finished]
         if not live:
             return
@@ -302,12 +350,20 @@ class MeshShardedDecoder:
                 wb.append(blk)
                 wo.append(off)
                 wv.append(self._emb_host[tok])
+            timing = (s.request or {}).get("_timing")
+            if not st["out"] and timing:
+                st["t_first"] = time.time()
             st["out"] += emit
             st["pos"] += len(emit)
             st["last"] = emit[-1]
             eng.note_tokens(len(emit))
             if len(st["out"]) >= st["need"]:
-                s.finish(list(st["out"][: st["need"]]))
+                toks = list(st["out"][: st["need"]])
+                if timing:
+                    t0 = float(s.request.get("_t0", st["t_first"]))
+                    s.finish({"tokens": toks, "ttft": st["t_first"] - t0})
+                else:
+                    s.finish(toks)
         self._apply_cache_writes(cow, wb, wo, wv)
 
     @batch(mode="continuous", max_batch_size=MAX_BATCH,
@@ -397,16 +453,115 @@ class MeshShardedDecoder:
                    "chain": chain})
         return st
 
-    # -- disaggregated serving: a later slice -------------------------------
-    def prefill_export(self, body, ingest=None):
-        raise NotImplementedError(
-            "disaggregated prefill (the streamed-chain handoff over the "
-            "object plane) is not ported yet (ROADMAP.md Queue 1)")
+    # -- disaggregated serving: the streamed-chain handoff -----------------
+    def prefill_export(self, body: Dict[str, Any],
+                       ingest: Optional[Dict[str, Any]] = None) -> tuple:
+        """Prompt-only admission of ``body`` on this (prefill) replica,
+        then the chain handoff: the chain's pages and its table metadata
+        laid out as one segment image and streamed into ``ingest``'s node
+        store, or an inline descriptor when no put path is reachable.
+        Returns ``(block_chain_descr, sampler_state)``."""
+        if not self._paged:
+            raise RuntimeError(
+                "disaggregated prefill requires the paged KV engine "
+                "(paged_kv knob)")
+        exp = self._decode({**(body or {}), "_prefill_only": True})
+        if not isinstance(exp, ChainExport):
+            raise RuntimeError(
+                f"prefill produced no chain (got {type(exp).__name__}: "
+                "paged admission not wired?)")
+        eng = self._kv_engine
+        try:
+            # One indexed read of the chain's blocks and one copy to the
+            # host: the pages cross the object plane as numpy.
+            idx = torch.as_tensor(exp.blocks, dtype=torch.int64,
+                                  device=self._dev)
+            pages = self._kv_cache[idx].cpu().numpy()
+            sampler = {"last": int(exp.prompt[-1]),
+                       "pos": len(exp.prompt)}
+            payload = {"src_bs": eng.block_size,
+                       "n_tokens": len(exp.prompt),
+                       "pages": pages, **sampler}
+            descr = self._stream_chain(payload, ingest)
+            if descr[0] == "inline":
+                with self._chain_lock:
+                    self._chain_stats["inline_fallbacks"] += 1
+            else:
+                eng.note_chain_streamed(int(descr[2]))
+            return descr, sampler
+        finally:
+            eng.release_export(exp)
 
-    def disagg_generate(self, body, prefill=None, pool: str = ""):
-        raise NotImplementedError(
-            "disaggregated decode (the streamed-chain handoff over the "
-            "object plane) is not ported yet (ROADMAP.md Queue 1)")
+    def _stream_chain(self, payload: Dict[str, Any],
+                      ingest: Optional[Dict[str, Any]]) -> tuple:
+        """Land one chain image in the ingest store.  Returns the
+        descriptor ``_open_chain`` takes: ``(kind, ident, total)`` for a
+        committed segment in the decode replica's node store (kind
+        ``"shm"`` or ``"spilled"``; ``put_local`` on the same node, the
+        pusher to a peer), or ``("inline", payload)`` when no put path is
+        reachable (no runtime, or a peer without the put verbs): the
+        reference's own protocol."""
+        descr = segment_stream.land(payload, (ingest or {}).get("store"))
+        return ("inline", payload) if descr is None else descr
+
+    def _open_chain(self, descr: tuple) -> Dict[str, Any]:
+        """Adopt a streamed chain on this (decode) replica: attach the
+        committed segment in the local node store, copy the pages out,
+        and free the segment (``unlink`` returns the node byte
+        accounting that the put charged).  Inline descriptors
+        short-cut."""
+        if descr[0] == "inline":
+            payload = dict(descr[1])
+            payload["pages"] = np.asarray(payload["pages"])
+            return payload
+        # The deserialized pages alias the mapping: copy them out before
+        # the segment goes away.
+        return segment_stream.take(descr, lambda p: dict(
+            p, pages=np.array(p["pages"], copy=True)))
+
+    def disagg_generate(self, body: Dict[str, Any], prefill=None,
+                        pool: str = "") -> Any:
+        """Decode-side orchestration of one disaggregated request:
+        prefill on the routed prefill replica, stream the chain here,
+        adopt it and decode locally.  A dead or failing prefill replica
+        is retried once against the pool's current membership (from the
+        controller's ``handle_snapshot``), counted in
+        ``handoff_retries``."""
+        import ray_tpu_torch as ray
+
+        ingest = self.kv_ingest_info()
+        handoff = None
+        last_err: Optional[BaseException] = None
+        cands = [prefill] if prefill is not None else []
+        for attempt in range(2):
+            for actor in cands:
+                try:
+                    handoff = ray.get(actor.call_method.remote(
+                        "prefill_export", (body, ingest), {}))
+                    break
+                except Exception as e:  # noqa: BLE001 -- retried below
+                    last_err = e
+            if handoff is not None or not pool or attempt:
+                break
+            # Membership may have changed under us (a killed replica):
+            # re-fetch the prefill pool and re-prefill on a live one.
+            try:
+                from ray_tpu_torch.serve.api import CONTROLLER_NAME
+
+                ctrl = ray.get_actor(CONTROLLER_NAME)
+                _, reps, _ = ray.get(ctrl.handle_snapshot.remote(pool))
+                cands = list(reps)
+                with self._chain_lock:
+                    self._chain_stats["handoff_retries"] += 1
+            except Exception as e:  # noqa: BLE001 -- surfaced below
+                last_err = e
+                break
+        if handoff is None:
+            raise RuntimeError(
+                f"disaggregated prefill failed: {last_err!r}")
+        descr, _sampler = handoff
+        imp = self._open_chain(descr)
+        return self._decode({**(body or {}), "_import": imp})
 
     # -- host-side reference (tests pin numerics against this) -------------
     def reference_decode(self, prompt, tokens: int) -> List[int]:

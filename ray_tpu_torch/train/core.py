@@ -14,6 +14,15 @@ The optimizer is plain PyTorch, as the reference leaves it to XLA.
 
 The step updates the state's tensors in place and returns the same state
 object: the counterpart of the reference's ``donate_argnums``.
+
+Data parallelism: when a default ``torch.distributed`` process group is
+initialised (``train.TorchConfig`` does so in each trainer worker, world
+size 1 included), ``loss_and_grads`` averages the gradients over it before
+the global norm and the clip, in a few flat f32 buckets as DDP does, and
+averages the loss: the counterpart of the reference's gradient of the
+global batch over its ``dp`` axis.  Each rank then takes the same update
+from its own shard of the batch.  Without a group the step is the
+one-device step.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ from ray_tpu_torch.models.llama import LlamaConfig, loss_fn
 # AdamW's moment decays and epsilon, as the reference's default_optimizer
 # gives them to optax.adamw (core.py:96).
 _B1, _B2, _EPS = 0.9, 0.95, 1e-8
+# Elements per all-reduce bucket when averaging grads over a process
+# group (f32: 128 MB a bucket, a few calls for the flagship's 162M).
+_BUCKET_NUMEL = 32 << 20
 
 
 @dataclasses.dataclass
@@ -153,16 +165,70 @@ def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               Dict[str, Any]]:
     """``(total loss, metrics, grads)`` of ``loss_fn`` at ``params``;
-    grads have the params' tree and dtypes."""
+    grads have the params' tree and dtypes.  Under a default process
+    group, grads, loss and perplexity are those of the whole batch
+    (averaged over the ranks)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
         total, metrics = loss_fn(live, batch, cfg)
         grads = torch.autograd.grad(total, leaves)
+    metrics = {k: m.detach() for k, m in metrics.items()}
+    total = total.detach()
+    if _in_process_group():
+        grads = _average_grads(grads)
+        total, metrics = _average_metrics(metrics, cfg)
     it = iter(grads)
-    return (total.detach(), {k: m.detach() for k, m in metrics.items()},
-            tree_map(lambda _: next(it), params))
+    return total, metrics, tree_map(lambda _: next(it), params)
+
+
+def _in_process_group() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _average_grads(grads) -> List[torch.Tensor]:
+    """The mean of every rank's grads over the default process group: one
+    f32 all-reduce per flat bucket of up to ``_BUCKET_NUMEL`` elements
+    (not one per leaf); each grad keeps its dtype."""
+    import torch.distributed as dist
+
+    buckets, cur, n = [], [], 0
+    for g in grads:
+        if cur and n + g.numel() > _BUCKET_NUMEL:
+            buckets.append(cur)
+            cur, n = [], 0
+        cur.append(g)
+        n += g.numel()
+    buckets.append(cur)
+    world = dist.get_world_size()
+    out: List[torch.Tensor] = []
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1).float() for g in bucket])
+        dist.all_reduce(flat)
+        flat.div_(world)
+        parts = flat.split([g.numel() for g in bucket])
+        out += [p.view(g.shape).to(g.dtype) for g, p in zip(bucket, parts)]
+    return out
+
+
+def _average_metrics(metrics, cfg: LlamaConfig):
+    """``(total, metrics)`` with the loss terms averaged over the default
+    process group (every rank's shard has as many tokens, so this is the
+    loss of the whole batch) and the perplexity of that loss, as the
+    reference reports for its global batch."""
+    import torch.distributed as dist
+
+    vals = torch.stack([metrics["loss"].float(),
+                        metrics["aux_loss"].float()])
+    dist.all_reduce(vals)
+    vals.div_(dist.get_world_size())
+    loss, aux = vals[0], vals[1]
+    metrics = dict(metrics, loss=loss, aux_loss=aux,
+                   perplexity=torch.exp(loss))
+    return loss + cfg.aux_loss_coef * aux, metrics
 
 
 def make_train_step(cfg: LlamaConfig, optimizer: AdamW
