@@ -91,6 +91,32 @@ Phases, each fatal on failure:
    with every leaf's digest equal.  Logs ms per step (median of steps
    2-4), the worker's start and fit()'s wall time.
 
+12. Main path 7, the MoE flagship without a mesh: the flagship with 8
+   experts in every layer, top-2 routing, capacity factor 1.25, aux
+   coefficient 0.01 (757M params), weights from seed 0.  Its forward at
+   4 x 512: finite logits, K1 launched 12 times a forward, the K1 path's
+   loss within 2e-2 of the plain-attention path's; ms per forward,
+   tokens/s, peak memory, the aux loss, the share of (token, choice)
+   assignments dropped over capacity and a profile.  Its train step at
+   4 x 513 (``default_optimizer(lr=1e-3, warmup=2, decay_steps=100)``):
+   K1/K2/K3 launched 24/12/12 times a step, the first loss within 1e-3
+   of ``loss_fn``'s under no_grad, a finite falling loss over 9 steps on
+   one batch; ms per step, tokens/s, peak memory and a profiled step.
+   Its grads against the plain-attention step: each path routing for
+   itself, grad_norm within 2e-2 relative (the share of top-2 choices
+   that differ and the per-leaf errors logged); on the K1 step's routing
+   replayed, phase 8's limits (grad_norm within 2e-2 relative, each
+   leaf's relative L2 error within 5e-2).
+13. Main path 8, the sharded path: an NCCL process group of world size
+   1 in this process on loopback, ``make_mesh(MeshConfig())`` on the
+   card, ``init_train_state(..., mesh=...)`` with phase 12's seed (params
+   and AdamW moments DTensors); the MoE loss under the mesh within 1e-3
+   of phase 12's (bitwise logged), K1 launched 12 times inside the
+   manual region; 3 train steps under the mesh: the first loss within
+   1e-3 of phase 12's first, grad_norm within 2e-2 relative, K1/K2/K3
+   24/12/12 a step; ms per step beside phase 12's.  The group is
+   destroyed before the phase ends.
+
 Launch counts are set to 0 just before each main path and read just after
 it (in paths 4-6, in the replica's or the trainer's process).  Prints the
 kernels line, then as its last line ``{"ok": true, "device": {...}}``.
@@ -1279,6 +1305,309 @@ def trainer_phase(torch, smi, loss0_phase8):
             "flash_dq": launches["flash_dq"]}
 
 
+MOE_EXPERTS = 8          # Mixtral-8x7B's routing: 8 experts, top 2
+MOE_STEPS = 8
+
+
+def moe_flagship_cfg():
+    """The flagship with 8 experts in every layer; the reference's MoE
+    defaults (top 2, capacity factor 1.25, aux coefficient 0.01)."""
+    from ray_tpu_torch.entry import _flagship_cfg
+
+    return dataclasses.replace(_flagship_cfg(), num_experts=MOE_EXPERTS)
+
+
+class RoutingProbe:
+    """Wraps ``moe.route_topk`` for the ``with`` block and records, per
+    call, the (token, choice) assignments kept under the capacity and
+    the top-k experts.  With ``replay`` (another probe's record of the
+    same path), each call routes to the experts the other run chose, in
+    the same order, with gate values from this run's probabilities.  It
+    synchronises, so it stays out of timed and counted runs."""
+
+    def __init__(self, torch, replay=None):
+        self.torch, self.calls, self.replay = torch, [], replay
+
+    def __enter__(self):
+        from ray_tpu_torch.ops import moe
+
+        self._orig = orig = moe.route_topk
+
+        def probe(logits, k, capacity):
+            if self.replay is None:
+                out = orig(logits, k, capacity)
+                probs = self.torch.softmax(logits.detach().float(), dim=-1)
+                idx = self.torch.topk(probs, k, dim=-1).indices
+            else:
+                idx = self.replay.calls[len(self.calls)][2]
+                probs = self.torch.softmax(logits.float(), dim=-1)
+                out = moe.assign_slots(probs, probs.gather(-1, idx), idx,
+                                       capacity)
+            self.calls.append((float(out[0].sum()), logits.shape[0] * k,
+                               idx))
+            return out
+
+        moe.route_topk = probe
+        return self
+
+    def __exit__(self, *exc):
+        from ray_tpu_torch.ops import moe
+
+        moe.route_topk = self._orig
+
+    def dropped_share(self):
+        return 1.0 - sum(c[0] for c in self.calls) / sum(
+            c[1] for c in self.calls)
+
+    def choices_differ(self, other):
+        """The share of (token, choice) experts of these calls absent
+        from the same token's top-k in ``other``'s calls."""
+        check(len(self.calls) == len(other.calls), "routing calls differ")
+        miss = n = 0
+        for (_, _, a), (_, _, b) in zip(self.calls, other.calls):
+            hit = (a.unsqueeze(-1) == b.unsqueeze(-2)).any(-1)
+            miss += int((~hit).sum())
+            n += hit.numel()
+        return miss / n
+
+
+def moe_phase(torch, dev, n=MOE_STEPS):
+    """Main path 7: the MoE flagship, no mesh: its forward at 4 x 512 and
+    its train step at 4 x 513 (K1 in the forward, K1-K3 in the step)."""
+    from ray_tpu_torch.models import forward, loss_fn
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.train import (
+        default_optimizer, init_train_state, loss_and_grads, make_train_step)
+    from ray_tpu_torch.train.core import global_norm, tree_leaves
+
+    cfg = moe_flagship_cfg()
+    cfg_ref = dataclasses.replace(cfg, attn_impl="reference")
+    L = cfg.num_layers
+    opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+    state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                             .manual_seed(0), dev)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 513),
+                                     dtype=torch.int64, device=dev,
+                                     generator=gen)}
+    tokens = batch["tokens"][:, :-1]
+    params = state.params
+
+    # The forward at 4 x 512.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()                       # main path 7a starts
+    with torch.no_grad():
+        logits, aux = forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        first = _build.launches["flash_fwd"]
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+    fwd_launches = _build.launches["flash_fwd"]   # main path 7a ends
+    peak = torch.cuda.max_memory_allocated()
+    check(first == L, f"K1 launched {first} times in one MoE forward, "
+          f"expected {L}")
+    check(fwd_launches == L * (reps + 1), "K1 launches per MoE forward")
+    check(tuple(logits.shape) == (4, 512, cfg.vocab_size)
+          and logits.dtype == torch.float32, "MoE logits shape")
+    check(bool(torch.isfinite(logits).all()) and math.isfinite(float(aux)),
+          "non-finite MoE logits or aux loss")
+    with torch.no_grad(), RoutingProbe(torch) as probe:
+        loss_k1, m_k1 = loss_fn(params, {"tokens": batch["tokens"]}, cfg)
+        loss_ref, _ = loss_fn(params, {"tokens": batch["tokens"]}, cfg_ref)
+    d_loss = abs(float(loss_k1) - float(loss_ref))
+    log(f"MoE flagship ({n_params} params: {L} layers, {MOE_EXPERTS} "
+        f"experts top-{cfg.num_selected}, capacity factor "
+        f"{cfg.capacity_factor}, 4 x 512, bf16) forward: {dt * 1e3} ms per "
+        f"forward, {4 * 512 / dt} tokens/s, peak memory {peak} B, K1 "
+        f"launches {fwd_launches} ({first} per forward); aux loss "
+        f"{float(aux)}; (token, choice) assignments dropped over capacity: "
+        f"{probe.dropped_share()} (K1 path, {len(probe.calls) // 2} "
+        f"layers)")
+    log(f"MoE flagship loss: K1 path {float(loss_k1)}, plain-attention "
+        f"path {float(loss_ref)}, |diff| {d_loss} (<=2e-2); aux "
+        f"{float(m_k1['aux_loss'])}")
+    check(math.isfinite(float(loss_k1)) and d_loss <= 2e-2,
+          "MoE flash and reference losses disagree")
+    with torch.no_grad():
+        busy = profile_run(torch, lambda: forward(params, tokens, cfg),
+                           "MoE forward", top=12)
+    fwd = kernels_in_path(busy, {"flash_fwd_kernel": L}, "moe_forward")
+
+    # Grads of the K1-K3 step against the plain-attention step, each
+    # routing for itself: a token whose 2nd and 3rd router probabilities
+    # are within bf16 noise may flip experts, which moves its whole
+    # contribution between expert slices.  So the kernels are held to
+    # phase 8's limits against the plain-attention step that replays the
+    # K1 step's expert choices, and the free comparison is logged.
+    def compare(g_ref, what):
+        norm_ref = float(global_norm(tree_leaves(g_ref)))
+        rel = [float((a - r).norm() / r.norm())
+               for a, r in zip(tree_leaves(g), tree_leaves(g_ref))]
+        log(f"MoE flagship grads, K1-K3 step vs plain-attention step "
+            f"({what}): grad_norm {norm} vs {norm_ref} (relative "
+            f"{abs(norm - norm_ref) / norm_ref}, <= 2e-2); per-leaf "
+            f"relative L2 error max {max(rel)}, all {rel}")
+        check(abs(norm - norm_ref) <= 2e-2 * norm_ref,
+              f"MoE grad_norm disagrees ({what})")
+        return max(rel)
+
+    with RoutingProbe(torch) as r_k1:
+        _, _, g = loss_and_grads(params, batch, cfg)
+    norm = float(global_norm(tree_leaves(g)))
+    with RoutingProbe(torch) as r_ref:
+        _, _, g_ref = loss_and_grads(params, batch, cfg_ref)
+    compare(g_ref, "each routing for itself")
+    log(f"top-{cfg.num_selected} choices that differ between the two "
+        f"paths: {r_k1.choices_differ(r_ref)}; dropped "
+        f"{r_k1.dropped_share()} vs {r_ref.dropped_share()}")
+    del g_ref
+    with RoutingProbe(torch, replay=r_k1) as r_same:
+        _, _, g_ref = loss_and_grads(params, batch, cfg_ref)
+    check(r_same.dropped_share() == r_k1.dropped_share(),
+          "the replayed routing dropped other assignments")
+    worst = compare(g_ref, "the K1 step's routing replayed")
+    check(worst <= 5e-2, "a leaf's MoE grads disagree on the same routing")
+    del g, g_ref
+    with torch.no_grad():
+        loss0 = loss_fn(params, batch, cfg)[1]["loss"]
+
+    # The train step at 4 x 513.
+    step = make_train_step(cfg, opt)
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()                       # main path 7b starts
+    state, m0 = step(state, batch)
+    first = [_build.launches[k] for k in keys]
+    metrics = [m0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt_step = (time.perf_counter() - t0) / n
+    launches = [_build.launches[k] for k in keys]  # main path 7b ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"MoE flagship train step (4 x 512 tokens, remat, bf16): "
+        f"{dt_step * 1e3} ms per step, {4 * 512 / dt_step} tokens/s, peak "
+        f"memory {peak} B; launches K1/K2/K3 {launches} in {n + 1} steps "
+        f"({first} in the first)")
+    log(f"MoE train losses {losses}; aux losses "
+        f"{[float(m['aux_loss']) for m in metrics]}; first step's loss "
+        f"{losses[0]} vs loss_fn's under no_grad {float(loss0)} (<= 1e-3); "
+        f"its grad_norm {float(m0['grad_norm'])}")
+    check(first == [2 * L, L, L], f"K1/K2/K3 launched {first} times in one "
+          f"MoE step, expected {[2 * L, L, L]}")
+    check(launches == [x * (n + 1) for x in first], "MoE launches per step")
+    check(abs(losses[0] - float(loss0)) <= 1e-3, "MoE step loss != loss_fn")
+    check(all(math.isfinite(x) for x in losses), "non-finite MoE loss")
+    check(losses[-1] < losses[0], "the MoE loss did not fall")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(
+        state.params)), "non-finite MoE params")
+    busy = profile_run(torch, lambda: step(state, batch), "MoE step", top=12)
+    in_step = kernels_in_path(
+        busy, {"flash_fwd_kernel": 2 * L, "flash_dkdv_kernel": L,
+               "flash_dq_kernel": L}, "moe_step")
+    del state
+    return {"forward": fwd_launches, "step": dict(zip(keys, launches)),
+            "fwd_profile": fwd, "step_profile": in_step,
+            "loss_forward": float(loss_k1), "loss0": losses[0],
+            "grad_norm0": float(m0["grad_norm"]), "step_ms": dt_step * 1e3}
+
+
+def mesh_phase(torch, dev, moe, steps=3):
+    """Main path 8: the MoE flagship on a mesh: a process group of world
+    size 1 in this process (NCCL on the card), ``make_mesh`` and the
+    sharded state, forward and train step, held against phase 12."""
+    import socket
+    import statistics
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import loss_fn
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.train import (
+        default_optimizer, init_train_state, make_train_step)
+    from ray_tpu_torch.train.core import tree_leaves
+
+    cfg = moe_flagship_cfg()
+    L = cfg.num_layers
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(), dev.type)
+        opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+        state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                                 .manual_seed(0), mesh=mesh)
+        check(all(isinstance(p, DTensor) for p in tree_leaves(state.params))
+              and all(isinstance(m, DTensor) for m in tree_leaves(
+                  state.opt_state["mu"])), "the sharded state is not DTensor")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 513),
+                                         dtype=torch.int64, device=dev,
+                                         generator=gen)}
+        torch.cuda.synchronize()
+        _build.reset_launches()                   # main path 8a starts
+        with torch.no_grad():
+            loss, _ = loss_fn(state.params, batch, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        fwd_launches = _build.launches["flash_fwd"]   # main path 8a ends
+        d = abs(float(loss) - moe["loss_forward"])
+        log(f"mesh {mesh} ({backend}, world size 1): MoE loss {float(loss)} "
+            f"vs phase 12's {moe['loss_forward']}, |diff| {d} (<= 1e-3), "
+            f"bitwise {float(loss) == moe['loss_forward']}; K1 launches "
+            f"{fwd_launches} in the manual region")
+        check(d <= 1e-3, "the mesh loss differs from phase 12's")
+        check(fwd_launches == L, f"K1 launched {fwd_launches} times under "
+              f"the mesh, expected {L}")
+        step = make_train_step(cfg, opt, mesh=mesh)
+        keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+        torch.cuda.synchronize()
+        _build.reset_launches()                   # main path 8b starts
+        times, metrics = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        launches = [_build.launches[k] for k in keys]  # main path 8b ends
+        m0 = metrics[0]
+        rel = abs(float(m0["grad_norm"]) - moe["grad_norm0"]) / \
+            moe["grad_norm0"]
+        ms = statistics.median(times[1:])
+        log(f"mesh train step: first loss {float(m0['loss'])} vs phase 12's "
+            f"{moe['loss0']} (<= 1e-3), grad_norm {float(m0['grad_norm'])} "
+            f"vs {moe['grad_norm0']} (relative {rel}, <= 2e-2); losses "
+            f"{[float(x['loss']) for x in metrics]}; K1/K2/K3 launches "
+            f"{launches} in {steps} steps; {ms} ms per step (median of "
+            f"steps 2-{steps}; all {times}) against phase 12's "
+            f"{moe['step_ms']} ms without a mesh")
+        check(abs(float(m0["loss"]) - moe["loss0"]) <= 1e-3,
+              "the mesh step's loss differs from phase 12's")
+        check(rel <= 2e-2, "the mesh step's grad_norm differs")
+        check(launches == [2 * L * steps, L * steps, L * steps],
+              f"K1/K2/K3 launched {launches} times in {steps} mesh steps")
+        del state
+        return {"forward": fwd_launches, **dict(zip(keys, launches))}
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     import torch
 
@@ -1321,6 +1650,21 @@ def main():
     k4["launches_disagg_in_process"] = disagg_inprocess_phase(torch)
     k4["launches_disagg"] = disagg_runtime_phase(torch, smi)
     trainer = trainer_phase(torch, smi, loss0)
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, dev)
+    mesh = mesh_phase(torch, dev, moe)
+    k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
+              **moe["step_profile"][0]["flash_fwd_kernel"],
+              launches_moe_forward=moe["forward"],
+              launches_moe_step=moe["step"]["flash_fwd"],
+              launches_mesh_forward=mesh["forward"],
+              launches_mesh_step=mesh["flash_fwd"])
+    k2.update(moe["step_profile"][0]["flash_dkdv_kernel"],
+              launches_moe_step=moe["step"]["flash_dkdv"],
+              launches_mesh_step=mesh["flash_dkdv"])
+    k3.update(moe["step_profile"][0]["flash_dq_kernel"],
+              launches_moe_step=moe["step"]["flash_dq"],
+              launches_mesh_step=mesh["flash_dq"])
     k1.update(in_forward["flash_fwd_kernel"],
               **in_step["flash_fwd_kernel"], step_busy_ms=step_busy,
               launches_trainer=trainer["flash_fwd"])

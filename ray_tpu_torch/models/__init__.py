@@ -3,7 +3,9 @@
 
 from ray_tpu_torch.models.convert import (
     init_params, params_from_jax, train_state_from_jax)
-from ray_tpu_torch.models.llama import LlamaConfig, forward, loss_fn
+from ray_tpu_torch.models.llama import (
+    LlamaConfig, forward, loss_fn, param_logical_axes)
 
 __all__ = ["LlamaConfig", "init_params", "params_from_jax",
-           "train_state_from_jax", "forward", "loss_fn"]
+           "train_state_from_jax", "forward", "loss_fn",
+           "param_logical_axes"]

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.models.llama import LlamaConfig, dense_layer_shapes
+from ray_tpu_torch.models.llama import LlamaConfig, _dense_layer_shapes
 
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: LlamaConfig,
@@ -34,10 +34,10 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: LlamaConfig,
             device=dev, dtype=cfg.param_dtype)
 
     layers = np_params["layers"]
-    expected = dense_layer_shapes(cfg)
+    expected = _dense_layer_shapes(cfg)
     if set(layers) != set(expected):
-        raise ValueError(f"layer params {sorted(layers)} are not the dense "
-                         f"layout {sorted(expected)}")
+        raise ValueError(f"layer params {sorted(layers)} are not the "
+                         f"layout of this config {sorted(expected)}")
     return {
         "embed": conv(np_params["embed"]),
         "layers": {k: conv(v) for k, v in layers.items()},
@@ -50,7 +50,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Scaled-normal init (fan-in), norms at one, params in
     ``cfg.param_dtype`` on ``device``; draws come from ``generator`` (on
-    its own device) in a fixed order."""
+    its own device) in the reference's order of the layer params (the MoE
+    router and experts after the attention), fan-in ``shape[-2]``."""
     dev = resolve_device(device)
 
     def normal(shape, fan_in):
@@ -59,7 +60,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         return x.to(device=dev, dtype=cfg.param_dtype)
 
     layers = {}
-    for name, shape in dense_layer_shapes(cfg).items():
+    for name, (shape, _) in _dense_layer_shapes(cfg).items():
         full = (cfg.num_layers,) + shape
         if name.endswith("norm"):
             layers[name] = torch.ones(full, dtype=cfg.param_dtype, device=dev)

@@ -1,5 +1,5 @@
-"""Flagship model family: Llama-style decoder LM, single device
-(counterpart: ``ray_tpu/models/llama.py``, the no-mesh branch).
+"""Flagship model family: Llama-style decoder LM, dense or MoE, on one
+device or sharded over a mesh (counterpart: ``ray_tpu/models/llama.py``).
 
 Params are a plain dict of tensors with the reference's layout: layers are
 STACKED on a leading ``(L, ...)`` dim and every projection is ``x @ W``,
@@ -14,9 +14,21 @@ checkpointing, as the reference wraps its layer in ``jax.checkpoint``: the
 backward recomputes the layer's forward (K1 included) instead of keeping
 its activations.
 
+MoE layers (``cfg.num_experts > 0``) use the dense-dispatch router of
+``ops/moe.py``; the expert tensors carry the logical axis 'expert', which
+the rules put on ``ep``.
+
+Under a mesh (``forward(..., mesh=...)``) every param carries the logical
+axes of ``param_logical_axes`` and the forward is the reference's global
+view in DTensor: the embedding is a one-hot matmul, activations are
+redistributed to their logical axes at the reference's constraint points,
+attention runs per shard in a region manual over (dp, fsdp, tp), and the
+MoE router routes the whole batch on every rank.  The loss is that of the
+global batch, and the grads of a step come back reduced.
+
 Not ported yet (each raises ``NotImplementedError``): ring and Ulysses
-sequence-parallel attention, MoE layers, mesh sharding and the pipelined
-forward — see ROADMAP.md Queue 1.
+sequence-parallel attention and the pipelined forward; see ROADMAP.md
+Queue 1.
 """
 
 from __future__ import annotations
@@ -31,6 +43,11 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.layers import (
     apply_rope, repeat_kv_heads, rms_norm, rope, swiglu)
+from ray_tpu_torch.ops.moe import moe_ffn
+from ray_tpu_torch.parallel.mesh import AXIS_DP, AXIS_FSDP, AXIS_TP, Mesh
+from ray_tpu_torch.parallel.sharding import (
+    LogicalAxisRules, P, manual_shard_map, shard_pytree,
+    with_logical_constraint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +64,7 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     attn_impl: str = "flash"          # flash | reference (ring/ulysses later)
-    num_experts: int = 0              # 0 = dense FFN (MoE: later)
+    num_experts: int = 0              # 0 = dense FFN
     num_selected: int = 2
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.01
@@ -81,19 +98,44 @@ class LlamaConfig:
         return LlamaConfig(**defaults)
 
 
-def dense_layer_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
-    """name -> per-layer shape of the stacked dense layer params."""
+def _dense_layer_shapes(cfg: LlamaConfig
+                        ) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
+    """name -> (shape per layer, logical axes with the stacked 'layer'
+    dim), in the reference's order: ``init_params`` draws in it."""
     d, h, kvd, m = cfg.embed_dim, cfg.qkv_dim, cfg.kv_dim, cfg.mlp_dim
+    shapes = {
+        "attn_norm": ((d,), ("layer", "embed")),
+        "wq": ((d, h), ("layer", "kernel_in", "heads")),
+        "wk": ((d, kvd), ("layer", "kernel_in", "kv_heads")),
+        "wv": ((d, kvd), ("layer", "kernel_in", "kv_heads")),
+        "wo": ((h, d), ("layer", "heads", "kernel_in")),
+        "mlp_norm": ((d,), ("layer", "embed")),
+    }
+    if cfg.num_experts:
+        e = cfg.num_experts
+        shapes.update({
+            "router": ((d, e), ("layer", "kernel_in", None)),
+            "w_gate": ((e, d, m), ("layer", "expert", "kernel_in", "mlp")),
+            "w_up": ((e, d, m), ("layer", "expert", "kernel_in", "mlp")),
+            "w_down": ((e, m, d), ("layer", "expert", "mlp", "kernel_in")),
+        })
+    else:
+        shapes.update({
+            "w_gate": ((d, m), ("layer", "kernel_in", "mlp")),
+            "w_up": ((d, m), ("layer", "kernel_in", "mlp")),
+            "w_down": ((m, d), ("layer", "mlp", "kernel_in")),
+        })
+    return shapes
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """The logical axes of every param, in the params' tree."""
+    layers = {k: ax for k, (_, ax) in _dense_layer_shapes(cfg).items()}
     return {
-        "attn_norm": (d,),
-        "wq": (d, h),
-        "wk": (d, kvd),
-        "wv": (d, kvd),
-        "wo": (h, d),
-        "mlp_norm": (d,),
-        "w_gate": (d, m),
-        "w_up": (d, m),
-        "w_down": (m, d),
+        "embed": ("vocab", "kernel_in"),
+        "layers": layers,
+        "final_norm": ("embed",),
+        "lm_head": ("kernel_in", "vocab"),
     }
 
 
@@ -106,23 +148,46 @@ def check_supported(cfg: LlamaConfig) -> None:
             "ROADMAP.md Queue 1, sequence parallelism")
     if cfg.attn_impl not in ("flash", "reference"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "num_experts > 0 needs MoE layers (ops/moe.py), not ported yet: "
-            "ROADMAP.md Queue 1, MoE")
 
 
-def _attention(q, k, v, cfg: LlamaConfig):
+def _attend(q, k, v, cfg: LlamaConfig):
     if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=True)
+        # The kernel takes contiguous (b, s, h, d) tensors: a head shard
+        # of a reshaped DTensor may be a strided view.
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
     k, v = repeat_kv_heads(q, k, v)
     return mha_reference(q, k, v, causal=True)
 
 
+def _attention(q, k, v, cfg: LlamaConfig, mesh):
+    """Attention of the configured impl.  Under a mesh it runs per shard,
+    manual over (dp, fsdp, tp): batch over (dp, fsdp), heads over tp,
+    seq whole, with k/v repeated to q's heads first, as the reference
+    runs its flash kernel (which has no partitioning rule).  The plain
+    attention takes the same region: its masks are plain tensors."""
+    if mesh is None:
+        return _attend(q, k, v, cfg)
+    k, v = repeat_kv_heads(q, k, v)
+    spec = P((AXIS_DP, AXIS_FSDP), None, AXIS_TP, None)
+    return manual_shard_map(
+        lambda q_, k_, v_: _attend(q_, k_, v_, cfg),
+        {AXIS_DP, AXIS_FSDP, AXIS_TP}, in_specs=(spec, spec, spec),
+        out_specs=spec, mesh=mesh)(q, k, v)
+
+
+def _make_cst(mesh, rules):
+    if mesh is None:
+        return lambda x, ax: x
+    return lambda x, ax: with_logical_constraint(x, ax, mesh, rules)
+
+
 def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One dense transformer layer (the reference's ``_make_layer_fn``
-    body without a mesh)."""
+           cos: torch.Tensor, sin: torch.Tensor, mesh, rules
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One transformer layer (the reference's ``_make_layer_fn`` body):
+    ``(x, this layer's router aux loss)``, None for a dense FFN."""
+    cst = _make_cst(mesh, rules)
     b, s = x.shape[0], x.shape[1]
     h = rms_norm(x, lp["attn_norm"])
     q = (h @ lp["wq"].to(cfg.dtype)).reshape(b, s, cfg.num_heads,
@@ -131,23 +196,53 @@ def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
                                              cfg.head_dim)
     v = (h @ lp["wv"].to(cfg.dtype)).reshape(b, s, cfg.num_kv_heads,
                                              cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = _attention(q, k, v, cfg).reshape(b, s, cfg.qkv_dim)
-    x = x + o @ lp["wo"].to(cfg.dtype)
+    q = cst(apply_rope(q, cos, sin), ("batch", "seq", "heads", "head_dim"))
+    k = cst(apply_rope(k, cos, sin), ("batch", "seq", "kv_heads", "head_dim"))
+    o = _attention(q, k, v, cfg, mesh).reshape(b, s, cfg.qkv_dim)
+    x = x + cst(o @ lp["wo"].to(cfg.dtype), ("batch", "seq", "embed"))
     h = rms_norm(x, lp["mlp_norm"])
-    gate = h @ lp["w_gate"].to(cfg.dtype)
-    up = h @ lp["w_up"].to(cfg.dtype)
-    return x + swiglu(gate, up) @ lp["w_down"].to(cfg.dtype)
+    if cfg.num_experts:
+        moe = moe_ffn(h.reshape(b * s, cfg.embed_dim), lp["router"],
+                      lp["w_gate"], lp["w_up"], lp["w_down"],
+                      num_selected=cfg.num_selected,
+                      capacity_factor=cfg.capacity_factor,
+                      constrain=cst if mesh is not None else None)
+        ff, aux = moe.out.reshape(b, s, cfg.embed_dim), moe.aux_loss
+    else:
+        gate = h @ lp["w_gate"].to(cfg.dtype)
+        up = h @ lp["w_up"].to(cfg.dtype)
+        ff = swiglu(gate, up) @ lp["w_down"].to(cfg.dtype)
+        aux = None
+    return x + cst(ff, ("batch", "seq", "embed")), aux
 
 
-def forward(params: Dict[str, Any], tokens: torch.Tensor,
-            cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (batch, seq) int -> (logits f32 (b, s, vocab), aux_loss)."""
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+            *, mesh: Optional[Mesh] = None,
+            rules: Optional[LogicalAxisRules] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (batch, seq) int -> (logits f32 (b, s, vocab), aux_loss),
+    the router loss averaged over the layers (0 for dense layers).
+
+    Under ``mesh`` the params are DTensors (``shard_pytree`` of
+    ``param_logical_axes``, or ``train.init_train_state(mesh=...)``) and
+    ``tokens`` is the global batch: a DTensor, or a plain tensor that
+    holds it on every rank.  Logits and aux come back as DTensors."""
     check_supported(cfg)
+    cst = _make_cst(mesh, rules)
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.dtype)
-    cos, sin = rope(s, cfg.head_dim, cfg.rope_theta, device=x.device)
+    cos, sin = rope(s, cfg.head_dim, cfg.rope_theta, device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if mesh is None:
+        x = params["embed"][tokens].to(cfg.dtype)
+    else:
+        tokens = shard_pytree(tokens, ("batch", "seq"), mesh, rules)
+        cos, sin, aux = (shard_pytree(t, (None,) * t.dim(), mesh)
+                         for t in (cos, sin, aux))
+        # One-hot matmul instead of a gather: with a ('vocab', 'embed')
+        # sharded table it is a local matmul and a sum over 'tp'.
+        onehot = F.one_hot(tokens.long(), cfg.vocab_size).to(cfg.dtype)
+        x = onehot @ params["embed"].to(cfg.dtype)
+    x = cst(x, ("batch", "seq", "embed"))
     # One unbind per stacked param: its backward stacks the layers' grads
     # in one pass, where indexing w[i] per layer would add L zero-padded
     # (L, ...) grads together.
@@ -156,34 +251,43 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = {n: w[i] for n, w in layers.items()}
         if remat:
-            x = checkpoint(_layer, x, lp, cfg, cos, sin, use_reentrant=False)
+            x, a = checkpoint(_layer, x, lp, cfg, cos, sin, mesh, rules,
+                              use_reentrant=False)
         else:
-            x = _layer(x, lp, cfg, cos, sin)
+            x, a = _layer(x, lp, cfg, cos, sin, mesh, rules)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(cfg.dtype)).float()
-    # Dense layers carry no router loss (the reference's aux / num_layers).
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return cst(logits, ("batch", "seq", "vocab")), aux / cfg.num_layers
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            cfg: LlamaConfig, *,
+            cfg: LlamaConfig, *, mesh: Optional[Mesh] = None,
+            rules: Optional[LogicalAxisRules] = None,
             forward_fn: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy.  batch: {"tokens": (b, s+1)} or
     {"inputs": (b, s), "targets": (b, s)}; returns (loss, metrics).
     ``forward_fn(params, inputs) -> (logits, aux)`` overrides the forward
-    pass so there is one loss definition."""
+    pass so there is one loss definition.  Under ``mesh`` the loss and
+    the metrics are those of the global batch, as plain tensors with the
+    same value on every rank."""
     if "tokens" in batch:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
     else:
         inputs, targets = batch["inputs"], batch["targets"]
     if forward_fn is None:
-        logits, aux = forward(params, inputs, cfg)
+        logits, aux = forward(params, inputs, cfg, mesh=mesh, rules=rules)
     else:
         logits, aux = forward_fn(params, inputs)
+    if mesh is not None:
+        targets = shard_pytree(targets, ("batch", "seq"), mesh, rules)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     loss = nll.mean()
+    if mesh is not None:
+        loss, aux = loss.full_tensor(), aux.full_tensor()
     total = loss + cfg.aux_loss_coef * aux
     return total, {"loss": loss, "aux_loss": aux,
                    "perplexity": torch.exp(loss)}

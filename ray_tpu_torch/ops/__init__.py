@@ -1,5 +1,6 @@
 """ray_tpu_torch.ops — hand-written Hopper kernels and their plain
-PyTorch versions (counterpart: ``ray_tpu.ops``).
+PyTorch versions (counterpart: ``ray_tpu.ops``), and the MoE layer,
+which the reference computes in XLA with no kernel of its own.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (or raises
 on what the kernel does not take) and runs the plain version for CPU
@@ -11,11 +12,13 @@ from ray_tpu_torch.ops.attention import (
     flash_attention, flash_attention_fwd, mha_reference)
 from ray_tpu_torch.ops.layers import (
     apply_rope, repeat_kv_heads, rms_norm, rope, swiglu)
+from ray_tpu_torch.ops.moe import MoEOutput, moe_ffn, route_topk
 from ray_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
 
 __all__ = [
     "flash_attention", "flash_attention_fwd", "mha_reference",
     "paged_attention", "paged_attention_reference", "rms_norm", "rope",
-    "apply_rope", "swiglu", "repeat_kv_heads",
+    "apply_rope", "swiglu", "repeat_kv_heads", "MoEOutput", "moe_ffn",
+    "route_topk",
 ]

@@ -12,16 +12,30 @@ reference's order, innermost (heaviest traffic) last:
 - ``fsdp`` parameter sharding: an all-gather and a reduce-scatter a step.
 - ``dp``   pure data parallelism: one gradient all-reduce a step.
 
-This module is arithmetic only and imports no torch.  ``make_mesh``,
-which lays these axes over a torch ``DeviceMesh``, comes with ROADMAP.md
-Queue 1 item 4.
+``make_mesh`` lays these axes over a torch ``DeviceMesh`` of the ranks
+of the default process group, one rank per card (or CPU ranks over gloo
+when asked for).  The ``DeviceMesh`` has a dimension only for each axis
+of size above 1, in the order above, and one dimension of size 1 named
+``"world"`` when every axis has size 1: DTensor's sharding propagation
+enumerates placements over the product of the mesh dimensions, so each
+dimension, even of size 1, multiplies the host time of every operator's
+first call by about eight (``tools/dtensor_mesh_ndim.py``): on a 6-D
+mesh a model's first forward stalls for many minutes.
+A ``Mesh`` is fully given by its ``DeviceMesh``, so any DTensor's
+``device_mesh`` names its axes again.
+
+This module imports torch only inside ``make_mesh``: the trainer's
+``ScalingConfig`` carries a ``MeshConfig`` into workers without torch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Sequence, Tuple
+import os
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 AXIS_DP = "dp"
 AXIS_FSDP = "fsdp"
@@ -77,3 +91,106 @@ class MeshConfig:
                 rest //= 2
         sizes[AXIS_DP] *= rest
         return MeshConfig(**sizes)
+
+
+# The DeviceMesh dimension of a mesh whose six axes all have size 1.
+WORLD_DIM = "world"
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_mesh", default=None)
+
+
+class Mesh:
+    """The six named axes over a torch ``DeviceMesh`` (counterpart: the
+    reference's ``jax.sharding.Mesh``).  ``shape`` maps every axis name to
+    its size; ``dim(axis)`` is the axis' ``DeviceMesh`` dimension, or
+    ``None`` for an axis of size 1."""
+
+    axis_names = MESH_AXES
+
+    def __init__(self, device_mesh: Any):
+        names = tuple(device_mesh.mesh_dim_names or ())
+        unknown = [n for n in names if n not in MESH_AXES + (WORLD_DIM,)]
+        if unknown:
+            raise ValueError(f"mesh dimensions {unknown} are not axes of "
+                             f"{MESH_AXES}")
+        self.device_mesh = device_mesh
+        self._dims = {a: names.index(a) for a in MESH_AXES if a in names}
+        self.shape: Dict[str, int] = {
+            a: device_mesh.size(self._dims[a]) if a in self._dims else 1
+            for a in MESH_AXES}
+
+    def dim(self, axis: str) -> Optional[int]:
+        if axis not in self.shape:
+            raise ValueError(f"unknown mesh axis {axis!r}")
+        return self._dims.get(axis)
+
+    @property
+    def device_type(self) -> str:
+        return self.device_mesh.device_type
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {self.device_type!r})"
+
+
+def make_mesh(config: Optional[MeshConfig] = None,
+              device_type: Optional[str] = None) -> Mesh:
+    """The global mesh over the default process group's ranks, with the
+    axis sizes ``config.sizes(world_size)`` (default ``MeshConfig()``:
+    every rank on ``dp``).
+
+    ``device_type`` is ``"cuda"`` unless the caller asks for ``"cpu"``:
+    on ``cuda`` each rank takes the card at its local index (``LOCAL_RANK``,
+    else its rank modulo the card count) and the group must be NCCL; on
+    ``cpu`` it must be gloo.  Raises without a process group, and never
+    builds a CPU mesh when a card was asked for."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs a torch.distributed process "
+                           "group: call init_process_group first")
+    device_type = device_type or "cuda"
+    backend = dist.get_backend()
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh on cuda needs a CUDA device; pass "
+                               "device_type='cpu' for a CPU mesh")
+        if "nccl" not in backend:
+            raise RuntimeError(f"make_mesh on cuda needs an NCCL process "
+                               f"group, not {backend!r}")
+        local = os.environ.get("LOCAL_RANK")
+        torch.cuda.set_device(int(local) if local is not None else
+                              dist.get_rank() % torch.cuda.device_count())
+    elif device_type == "cpu":
+        if "gloo" not in backend:
+            raise RuntimeError(f"make_mesh on cpu needs a gloo process "
+                               f"group, not {backend!r}")
+    else:
+        raise ValueError(f"unsupported device type {device_type!r}")
+    sizes = (config or MeshConfig()).sizes(dist.get_world_size())
+    live = [(a, n) for a, n in zip(MESH_AXES, sizes) if n > 1]
+    live = live or [(WORLD_DIM, 1)]
+    return Mesh(init_device_mesh(device_type, tuple(n for _, n in live),
+                                 mesh_dim_names=tuple(a for a, _ in live)))
+
+
+def mesh_axis_size(mesh: Mesh, axis: str) -> int:
+    return mesh.shape[axis]
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh) -> Iterator[Mesh]:
+    """Make ``mesh`` the ambient mesh (the reference's ``jax.set_mesh``)
+    for the ``with`` block: ``manual_shard_map`` resolves against it."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The ambient mesh of ``use_mesh``, or None."""
+    return _AMBIENT.get()

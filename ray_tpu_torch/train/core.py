@@ -22,19 +22,32 @@ the global norm and the clip, in a few flat f32 buckets as DDP does, and
 averages the loss: the counterpart of the reference's gradient of the
 global batch over its ``dp`` axis.  Each rank then takes the same update
 from its own shard of the batch.  Without a group the step is the
-one-device step.
+one-device step.  MoE routes over the global batch, which no average of
+per-rank steps gives: for ``num_experts > 0`` a group of more than one
+rank runs the step as a ``dp`` mesh over its ranks (each rank's batch its
+shard of the global one), so the router sees every token.
+
+Sharded (``mesh=``): the params and AdamW's moments are DTensors at the
+placements of ``param_logical_axes`` under the rules, the loss is that of
+the global batch, and the grads come back from autograd as DTensors,
+reduced over the batch axes and redistributed to their params'
+placements; the update runs on each rank's local shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.models.convert import init_params
-from ray_tpu_torch.models.llama import LlamaConfig, loss_fn
+from ray_tpu_torch.models.llama import (
+    LlamaConfig, loss_fn, param_logical_axes)
+from ray_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ray_tpu_torch.parallel.sharding import LogicalAxisRules, shard_pytree
 
 # AdamW's moment decays and epsilon, as the reference's default_optimizer
 # gives them to optax.adamw (core.py:96).
@@ -67,9 +80,17 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     return out
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: in-place updates reach it)."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the L2 norm of all leaves together, f32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    """optax.global_norm: the L2 norm of all leaves together, f32.  The
+    squares of a sharded leaf are summed over its shards."""
+    sq = [g.float().square().sum() for g in leaves]
+    return torch.sqrt(sum(x.full_tensor() if isinstance(x, DTensor) else x
+                          for x in sq))
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -116,17 +137,18 @@ class AdamW:
     def update_(self, grads: Dict[str, Any], opt_state: Dict[str, Any],
                 params: Dict[str, Any], grad_norm: torch.Tensor) -> None:
         """One step on ``params`` and ``opt_state`` in place;
-        ``grad_norm`` is ``global_norm`` of ``grads``."""
+        ``grad_norm`` is ``global_norm`` of ``grads``.  Sharded leaves
+        (grads at their params' placements) update their local shards."""
         count = opt_state["count"]
         lr = self.schedule(count)
         bc1 = 1.0 - _B1 ** (count + 1)
         bc2 = 1.0 - _B2 ** (count + 1)
         keep = grad_norm < self.grad_clip
         gs = [torch.where(keep, g, g / grad_norm * self.grad_clip)
-              for g in tree_leaves(grads)]
-        for p, g, m, v in zip(tree_leaves(params), gs,
-                              tree_leaves(opt_state["mu"]),
-                              tree_leaves(opt_state["nu"])):
+              for g in map(_local, tree_leaves(grads))]
+        for p, g, m, v in zip(map(_local, tree_leaves(params)), gs,
+                              map(_local, tree_leaves(opt_state["mu"])),
+                              map(_local, tree_leaves(opt_state["nu"]))):
             m.mul_(_B1).add_(g, alpha=1.0 - _B1)
             v.mul_(_B2).addcmul_(g, g, value=1.0 - _B2)
             upd = (m / bc1) / ((v / bc2).sqrt() + _EPS)
@@ -153,40 +175,77 @@ def train_state_from_params(params: Dict[str, Any],
 
 
 def init_train_state(cfg: LlamaConfig, optimizer: AdamW,
-                     generator: torch.Generator, device=None) -> TrainState:
+                     generator: torch.Generator, device=None, *,
+                     mesh: Optional[Mesh] = None,
+                     rules: Optional[LogicalAxisRules] = None
+                     ) -> TrainState:
     """Params from ``models.init_params`` (drawn from ``generator``) on
-    ``device`` (default ``cuda:0``), and the optimizer's fresh state."""
-    return train_state_from_params(init_params(cfg, generator, device),
-                                   optimizer)
+    ``device`` (default ``cuda:0``, or the mesh's device type), and the
+    optimizer's fresh state.  With ``mesh`` the params are sharded at
+    their logical axes under ``rules``, and AdamW's moments like them."""
+    if mesh is not None and device is None:
+        device = mesh.device_type
+    params = init_params(cfg, generator, device)
+    if mesh is not None:
+        params = shard_pytree(params, param_logical_axes(cfg), mesh, rules)
+    return train_state_from_params(params, optimizer)
 
 
 def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                   cfg: LlamaConfig
+                   cfg: LlamaConfig, *, mesh: Optional[Mesh] = None,
+                   rules: Optional[LogicalAxisRules] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               Dict[str, Any]]:
     """``(total loss, metrics, grads)`` of ``loss_fn`` at ``params``;
-    grads have the params' tree and dtypes.  Under a default process
-    group, grads, loss and perplexity are those of the whole batch
-    (averaged over the ranks)."""
+    grads have the params' tree and dtypes.  Under ``mesh`` they are
+    DTensors at their params' placements.  Under a default process group
+    without a mesh, grads, loss and perplexity are those of the whole
+    batch (averaged over the ranks; for MoE, routed over it)."""
+    if mesh is None and cfg.num_experts and _group_size() > 1:
+        return _moe_over_group(params, batch, cfg)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        total, metrics = loss_fn(live, batch, cfg)
+        total, metrics = loss_fn(live, batch, cfg, mesh=mesh, rules=rules)
         grads = torch.autograd.grad(total, leaves)
     metrics = {k: m.detach() for k, m in metrics.items()}
     total = total.detach()
-    if _in_process_group():
+    if mesh is not None:
+        # Sums still pending over the batch axes are reduced here.
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 for g, p in zip(grads, leaves)]
+    elif _group_size():
         grads = _average_grads(grads)
         total, metrics = _average_metrics(metrics, cfg)
     it = iter(grads)
     return total, metrics, tree_map(lambda _: next(it), params)
 
 
-def _in_process_group() -> bool:
+def _group_size() -> int:
+    """The default process group's world size, 0 without one."""
     import torch.distributed as dist
 
-    return dist.is_available() and dist.is_initialized()
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
+
+
+def _moe_over_group(params, batch, cfg: LlamaConfig):
+    """``loss_and_grads`` of an MoE model under a process group and no
+    mesh: the group as a ``dp`` mesh, each rank's params its replica and
+    its batch its shard of the global one (the ranks' batches must have
+    one shape), so routing sees the whole batch; the grads come back
+    summed over the ranks, as plain tensors."""
+    mesh = make_mesh(device_type=tree_leaves(params)[0].device.type)
+    dm, rep, shard = mesh.device_mesh, [Replicate()], [Shard(0)]
+    total, metrics, grads = loss_and_grads(
+        tree_map(lambda p: DTensor.from_local(p, dm, rep, run_check=False),
+                 params),
+        {k: DTensor.from_local(v, dm, shard, run_check=False)
+         for k, v in batch.items()},
+        cfg, mesh=mesh)
+    return total, metrics, tree_map(lambda g: g.to_local(), grads)
 
 
 def _average_grads(grads) -> List[torch.Tensor]:
@@ -231,16 +290,21 @@ def _average_metrics(metrics, cfg: LlamaConfig):
     return loss + cfg.aux_loss_coef * aux, metrics
 
 
-def make_train_step(cfg: LlamaConfig, optimizer: AdamW
+def make_train_step(cfg: LlamaConfig, optimizer: AdamW, *,
+                    mesh: Optional[Mesh] = None,
+                    rules: Optional[LogicalAxisRules] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """The train step.  Batch: {"tokens": (b, s+1) int}.  Metrics:
-    ``loss``, ``aux_loss``, ``perplexity`` and ``grad_norm`` (the global
-    norm of the raw grads, before clipping), as 0-d f32 tensors."""
+    """The train step.  Batch: {"tokens": (b, s+1) int}, the global batch
+    under ``mesh`` (with the state from ``init_train_state(mesh=...)``).
+    Metrics: ``loss``, ``aux_loss``, ``perplexity`` and ``grad_norm``
+    (the global norm of the raw grads, before clipping), as 0-d f32
+    tensors."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        _, metrics, grads = loss_and_grads(state.params, batch, cfg)
+        _, metrics, grads = loss_and_grads(state.params, batch, cfg,
+                                           mesh=mesh, rules=rules)
         grad_norm = global_norm(tree_leaves(grads))
         optimizer.update_(grads, state.opt_state, state.params, grad_norm)
         state.step += 1

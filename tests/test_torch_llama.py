@@ -81,8 +81,7 @@ def test_init_params_layout_and_scale():
 
 
 @pytest.mark.parametrize("kw", [{"attn_impl": "ring"},
-                                {"attn_impl": "ulysses"},
-                                {"num_experts": 4}])
+                                {"attn_impl": "ulysses"}])
 def test_unported_parts_raise(kw):
     cfg = LlamaConfig.tiny(**kw)
     params = init_params(LlamaConfig.tiny(), torch.Generator().manual_seed(0),

@@ -14,6 +14,10 @@ reference.
   ``test_torch_train.py``'s tolerances: loss and grad_norm within 1e-5,
   every param within 1e-4 with at most 0.1% of the elements beyond 1e-5.
   Both ranks hold bitwise the same params.
+- The same with 4 experts: the step routes the whole batch (the group as
+  a ``dp`` mesh), so loss, aux loss and grad_norm equal the reference's
+  whole-batch step's within 1e-5, and the params hold
+  ``test_torch_llama_moe.py``'s limits.
 - With no process group the step is the one-device step, and a group of
   world size 1 changes no bit of it.
 - A streamed checkpoint crosses the object plane into the driver's node
@@ -37,6 +41,7 @@ from ray_tpu_torch.parallel import MESH_AXES, MeshConfig
 from ray_tpu_torch.train import DataParallelTrainer, TorchConfig
 
 OPT = dict(lr=1e-2, warmup=1, decay_steps=10)
+MOE = {"num_experts": 4}
 
 
 @pytest.fixture(scope="module")
@@ -192,28 +197,40 @@ def test_streamed_checkpoints_cross_the_object_plane(runtime):
 
 # -- data-parallel parity with the reference's single-process step ----------
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The reference's initial params and its params and metrics after 1
-    and 2 steps on the whole (4, 33) batch (numpy leaves)."""
+def _jax_steps(cfg_kw):
+    """The reference's initial params, its params and metrics after 1
+    and 2 steps on the whole (4, 33) batch, and its first grads (numpy
+    leaves)."""
     import jax
     import jax.numpy as jnp
 
     from ray_tpu.models import llama as jax_llama
     from ray_tpu.train import core as jax_core
 
-    jcfg = jax_llama.LlamaConfig.tiny(attn_impl="flash")
+    jcfg = jax_llama.LlamaConfig.tiny(**cfg_kw)
     opt = jax_core.default_optimizer(**OPT)
     state = jax_core.init_train_state(jax.random.PRNGKey(0), jcfg, opt)
     step = jax_core.make_train_step(jcfg, opt, donate=False)
     toks = np.random.default_rng(0).integers(
         0, jcfg.vocab_size, size=(4, 33)).astype(np.int32)
+    grads = jax.tree.map(np.asarray, jax.grad(lambda p: jax_llama.loss_fn(
+        p, {"tokens": jnp.asarray(toks)}, jcfg)[0])(state.params))
     params, metrics = [jax.tree.map(np.asarray, state.params)], []
     for _ in range(2):
         state, m = step(state, {"tokens": jnp.asarray(toks)})
         params.append(jax.tree.map(np.asarray, state.params))
         metrics.append({k: float(v) for k, v in m.items()})
-    return params, metrics, toks
+    return params, metrics, toks, grads
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_steps({"attn_impl": "flash"})
+
+
+@pytest.fixture(scope="module")
+def jax_moe_run():
+    return _jax_steps(MOE)
 
 
 def _dp_loop(config):
@@ -229,7 +246,7 @@ def _dp_loop(config):
     from ray_tpu_torch.train.core import tree_leaves, tree_map
 
     torch.set_num_threads(1)
-    cfg = LlamaConfig.tiny(attn_impl="flash")
+    cfg = LlamaConfig.tiny(**config["cfg"])
     opt = default_optimizer(**config["opt"])
     state = train_state_from_params(
         params_from_jax(config["params"], cfg, "cpu"), opt)
@@ -252,20 +269,31 @@ def _dp_loop(config):
             "params": tree_map(lambda t: t.numpy().copy(), state.params)})
 
 
-def _assert_params_close(got, np_params):
+def _assert_params_close(got, np_params, cfg_kw, first_grads=None):
+    """``test_torch_train.py``'s limits; with ``first_grads`` (MoE),
+    ``test_torch_llama_moe.py``'s: the 1e-4 maximum holds where the
+    reference's first grad is at least 1e-6, and every element within lr
+    per step."""
     import torch
 
     from ray_tpu_torch.models import LlamaConfig, params_from_jax
     from ray_tpu_torch.train.core import tree_leaves, tree_map
 
-    want = params_from_jax(np_params, LlamaConfig.tiny(attn_impl="flash"),
-                           "cpu")
+    want = params_from_jax(np_params, LlamaConfig.tiny(**cfg_kw), "cpu")
     n_far = n = 0
-    for a, b in zip(tree_leaves(tree_map(torch.from_numpy, got)),
-                    tree_leaves(want)):
+    for i, (a, b) in enumerate(zip(tree_leaves(tree_map(torch.from_numpy,
+                                                        got)),
+                                   tree_leaves(want))):
         assert a.shape == b.shape
         d = (a - b).abs()
-        assert float(d.max()) <= 1e-4
+        if first_grads is None:
+            assert float(d.max()) <= 1e-4
+        else:
+            assert float(d.max()) <= 2 * OPT["lr"]
+            sure = torch.from_numpy(
+                np.abs(tree_leaves(first_grads)[i]) >= 1e-6)
+            if bool(sure.any()):
+                assert float(d[sure].max()) <= 1e-4
         n_far += int((d > 1e-5).sum())
         n += d.numel()
     assert n_far <= 1e-3 * n
@@ -273,10 +301,12 @@ def _assert_params_close(got, np_params):
 
 def test_two_gloo_workers_match_the_reference_whole_batch_step(runtime,
                                                                jax_run):
-    params, metrics, toks = jax_run
+    params, metrics, toks, _ = jax_run
+    cfg_kw = {"attn_impl": "flash"}
     trainer = DataParallelTrainer(
         _dp_loop, train_loop_config={"opt": OPT, "params": params[0],
-                                     "tokens": toks, "steps": 2},
+                                     "tokens": toks, "steps": 2,
+                                     "cfg": cfg_kw},
         backend_config=TorchConfig(distributed=True),
         scaling_config=ScalingConfig(num_workers=2))
     result = trainer.fit()
@@ -290,7 +320,31 @@ def test_two_gloo_workers_match_the_reference_whole_batch_step(runtime,
             assert abs(got[k] - metrics[i][k]) <= 1e-5, (i, k)
         assert abs(got["perplexity"] - metrics[i]["perplexity"]) <= \
             1e-5 * metrics[i]["perplexity"]
-        _assert_params_close(got["params"], params[i + 1])
+        _assert_params_close(got["params"], params[i + 1], cfg_kw)
+
+
+def test_two_gloo_workers_route_moe_over_the_whole_batch(runtime,
+                                                         jax_moe_run):
+    """MoE under the group: each rank holds half of the batch, and the
+    step routes the whole batch (capacity, drops and the aux loss of all
+    4 rows), as the reference's single-process step does."""
+    params, metrics, toks, grads = jax_moe_run
+    trainer = DataParallelTrainer(
+        _dp_loop, train_loop_config={"opt": OPT, "params": params[0],
+                                     "tokens": toks, "steps": 2,
+                                     "cfg": MOE},
+        backend_config=TorchConfig(distributed=True),
+        scaling_config=ScalingConfig(num_workers=2))
+    result = trainer.fit()
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    assert len(hist) == 2
+    for i, got in enumerate(hist):
+        assert got["world"] == 2 and got["rows"] == 2
+        assert got["ranks_apart"] == 0.0
+        for k in ("loss", "aux_loss", "grad_norm"):
+            assert abs(got[k] - metrics[i][k]) <= 1e-5, (i, k)
+        _assert_params_close(got["params"], params[i + 1], MOE, grads)
 
 
 def test_step_without_group_is_the_one_device_step():
