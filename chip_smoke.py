@@ -116,6 +116,21 @@ Phases, each fatal on failure:
    1e-3 of phase 12's first, grad_norm within 2e-2 relative, K1/K2/K3
    24/12/12 a step; ms per step beside phase 12's.  The group is
    destroyed before the phase ends.
+14. Main path 9, sequence and pipeline parallelism: again an NCCL group
+   of world size 1 and ``make_mesh(MeshConfig())``, the dense flagship of
+   phase 8 (its seeds, 4 x 513).  Ulysses attention: the mesh loss within
+   1e-3 of phase 8's first loss (bitwise logged), K1 launched 12 times a
+   forward, 3 train steps with phase 8's limits (first loss within 1e-3,
+   grad_norm within 2e-2 relative) and K1/K2/K3 24/12/12 a step.  Ring
+   attention (plain torch, the reference's XLA path): the loss within
+   1e-3, K1 launched 0 times.  ``forward_pipelined`` with 4 microbatches
+   and flash attention (at pp=1 the one-stage shortcut): the logits
+   against the mesh forward's (bitwise logged), the loss within 1e-3 of
+   it, K1 12 a forward, and 3 steps of ``make_train_step(pipelined=True,
+   num_microbatches=4)`` with the limits and launches above.  ms per
+   forward and per step (median of steps 2-3) beside phases 6, 8 and
+   13, and profiles of the Ulysses forward and step, the ring forward and
+   the pipelined step.  The group is destroyed before the phase ends.
 
 Launch counts are set to 0 just before each main path and read just after
 it (in paths 4-6, in the replica's or the trainer's process).  Prints the
@@ -633,7 +648,7 @@ def llama_phase(torch):
     with torch.no_grad():
         busy = profile_run(torch, lambda: fn(params, tokens), "forward")
     return launches, kernels_in_path(busy, {"flash_fwd_kernel": first},
-                                     "forward")
+                                     "forward"), dt * 1e3
 
 
 def kernels_in_path(busy, per_run, what):
@@ -749,7 +764,9 @@ def train_phase(torch, n=8):
     busy = profile_run(torch, lambda: step(state, batch), "step", top=12)
     return dict(zip(keys, launches)), kernels_in_path(
         busy, {"flash_fwd_kernel": 2 * L, "flash_dkdv_kernel": L,
-               "flash_dq_kernel": L}, "step"), losses[0]
+               "flash_dq_kernel": L}, "step"), {
+        "loss0": losses[0], "grad_norm0": float(m0["grad_norm"]),
+        "step_ms": dt * 1e3}
 
 
 def serve_phase(torch):
@@ -1603,7 +1620,174 @@ def mesh_phase(torch, dev, moe, steps=3):
         check(launches == [2 * L * steps, L * steps, L * steps],
               f"K1/K2/K3 launched {launches} times in {steps} mesh steps")
         del state
-        return {"forward": fwd_launches, **dict(zip(keys, launches))}
+        return {"forward": fwd_launches, "step_ms": ms,
+                **dict(zip(keys, launches))}
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
+    """Main path 9: sequence and pipeline parallelism, the dense flagship
+    of phase 8 on a mesh over a process group of world size 1 in this
+    process (NCCL on the card): Ulysses attention (K1 per head group),
+    ring attention (plain torch, as the reference's XLA path), and the
+    GPipe pipeline (the one-stage shortcut at pp=1), each forward and
+    train step held against phase 8.  Returns {path: [K1, K2, K3]
+    launches in it}."""
+    import socket
+    import statistics
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.models import forward, loss_fn
+    from ray_tpu_torch.models.llama import forward_pipelined
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.train import (
+        default_optimizer, init_train_state, make_train_step)
+
+    base = _flagship_cfg()
+    L, M = base.num_layers, 4
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(), dev.type)
+        opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+
+        def fresh_state():
+            return init_train_state(base, opt, torch.Generator(device=dev)
+                                    .manual_seed(0), mesh=mesh)
+
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, base.vocab_size, (4, 513),
+                                         dtype=torch.int64, device=dev,
+                                         generator=gen)}
+        params = fresh_state().params
+        out = {}
+
+        def forward_path(name, cfg, forward_fn=None, n=3):
+            """The loss under no_grad once with the launches counted, then
+            ``n`` timed: (loss, launches, ms per forward)."""
+            def run():
+                return loss_fn(params, batch, cfg, mesh=mesh,
+                               forward_fn=forward_fn)[0]
+
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                _build.reset_launches()           # the forward starts
+                loss = float(run())
+                torch.cuda.synchronize()
+                out[name] = [_build.launches[k] for k in keys]
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    run()
+                torch.cuda.synchronize()
+            return loss, out[name][0], (time.perf_counter() - t0) / n * 1e3
+
+        def step_path(name, cfg, **kw):
+            """``steps`` train steps from a fresh state, launches counted:
+            (first metrics, losses, ms per step, the step)."""
+            state = fresh_state()
+            step = make_train_step(cfg, opt, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            _build.reset_launches()               # the steps start
+            times, metrics = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                metrics.append(m)
+            out[name] = [_build.launches[k] for k in keys]
+            m0 = metrics[0]
+            rel = abs(float(m0["grad_norm"]) - dense["grad_norm0"]) / \
+                dense["grad_norm0"]
+            ms = statistics.median(times[1:])
+            log(f"{name}: first loss {float(m0['loss'])} vs phase 8's "
+                f"{dense['loss0']} (<= 1e-3, bitwise "
+                f"{float(m0['loss']) == dense['loss0']}), grad_norm "
+                f"{float(m0['grad_norm'])} vs {dense['grad_norm0']} "
+                f"(relative {rel}, <= 2e-2); losses "
+                f"{[float(x['loss']) for x in metrics]}; K1/K2/K3 launches "
+                f"{out[name]} in {steps} steps; {ms} ms per step (median of "
+                f"steps 2-{steps}; all {times}) against phase 8's "
+                f"{dense['step_ms']} (no mesh) and phase 13's {mesh_step_ms} "
+                f"(MoE on the mesh)")
+            check(abs(float(m0["loss"]) - dense["loss0"]) <= 1e-3,
+                  f"{name}: the first loss differs from phase 8's")
+            check(rel <= 2e-2, f"{name}: grad_norm differs from phase 8's")
+            check(out[name] == [2 * L * steps, L * steps, L * steps],
+                  f"{name}: K1/K2/K3 launched {out[name]} times in {steps} "
+                  f"steps")
+            check(all(math.isfinite(float(x["loss"])) for x in metrics),
+                  f"{name}: a non-finite loss")
+            return lambda: step(state, batch)
+
+        def log_forward(name, loss, ref, what_ref, k1, ms):
+            d = abs(loss - ref)
+            log(f"{name} forward ({mesh}, {backend}, world size 1): loss "
+                f"{loss} vs {what_ref} {ref}, |diff| {d} (<= 1e-3), bitwise "
+                f"{loss == ref}; K1 launches {k1}; {ms} ms per forward "
+                f"against phase 6's {dense['forward_ms']} (no mesh, logits "
+                f"only)")
+            check(d <= 1e-3, f"{name}: the loss differs from {what_ref}")
+
+        # (a) Ulysses: K1 per head group (the all-to-alls are the identity
+        # at sp=1).
+        cfg_u = dataclasses.replace(base, attn_impl="ulysses")
+        loss, k1, ms = forward_path("ulysses_forward", cfg_u)
+        log_forward("ulysses", loss, dense["loss0"], "phase 8's first loss",
+                    k1, ms)
+        check(k1 == L, f"ulysses: K1 launched {k1} times, expected {L}")
+        step_u = step_path("ulysses_step", cfg_u)
+        with torch.no_grad():
+            profile_run(torch, lambda: loss_fn(params, batch, cfg_u,
+                                               mesh=mesh), "ulysses forward")
+        profile_run(torch, step_u, "ulysses step", top=12)
+        del step_u
+        # (b) ring: the reference's XLA path in plain torch, no kernel.
+        cfg_r = dataclasses.replace(base, attn_impl="ring")
+        loss, k1, ms = forward_path("ring_forward", cfg_r)
+        log_forward("ring (plain torch, the reference's XLA path)", loss,
+                    dense["loss0"], "phase 8's first loss", k1, ms)
+        check(k1 == 0, f"ring: K1 launched {k1} times, expected 0")
+        with torch.no_grad():
+            profile_run(torch, lambda: loss_fn(params, batch, cfg_r,
+                                               mesh=mesh), "ring forward")
+        # (c) the pipeline with flash attention (pp=1: the one-stage
+        # shortcut runs the same layers as the mesh forward).
+        inputs = batch["tokens"][:, :-1]
+        with torch.no_grad():
+            mesh_loss = float(loss_fn(params, batch, base, mesh=mesh)[0])
+            want = forward(params, inputs, base, mesh=mesh)[0].full_tensor()
+            got = forward_pipelined(params, inputs, base, mesh=mesh,
+                                    num_microbatches=M)[0].full_tensor()
+        check(tuple(got.shape) == (4, 512, base.vocab_size)
+              and bool(torch.isfinite(got).all()), "pipelined logits")
+        log(f"pipelined logits bitwise the mesh forward's: "
+            f"{bool(torch.equal(got, want))} (max |diff| "
+            f"{float((got - want).abs().max())})")
+        del want, got
+
+        def pipelined(p, t):
+            return forward_pipelined(p, t, base, mesh=mesh,
+                                     num_microbatches=M)
+
+        loss, k1, ms = forward_path("pipelined_forward", base, pipelined)
+        log_forward(f"pipelined ({M} microbatches)", loss, mesh_loss,
+                    "the mesh forward's loss", k1, ms)
+        check(k1 == L, f"pipelined: K1 launched {k1} times, expected {L}")
+        step_p = step_path("pipelined_step", base, pipelined=True,
+                           num_microbatches=M)
+        profile_run(torch, step_p, "pipelined step", top=12)
+        del step_p, params
+        return out
     finally:
         dist.destroy_process_group()
 
@@ -1643,16 +1827,28 @@ def main():
     k1 = k1_phase(torch, dev)
     k2, k3 = k23_phase(torch, dev)
     k4 = k4_phase(torch, dev)
-    k1["launches"], (in_forward, k1["forward_busy_ms"]) = llama_phase(torch)
+    k1["launches"], (in_forward, k1["forward_busy_ms"]), fwd_ms = \
+        llama_phase(torch)
     k4["launches"] = serve_phase(torch)
-    train, (in_step, step_busy), loss0 = train_phase(torch)
+    train, (in_step, step_busy), dense = train_phase(torch)
     runtime_serve_phase(torch, smi)
     k4["launches_disagg_in_process"] = disagg_inprocess_phase(torch)
     k4["launches_disagg"] = disagg_runtime_phase(torch, smi)
-    trainer = trainer_phase(torch, smi, loss0)
+    trainer = trainer_phase(torch, smi, dense["loss0"])
     torch.cuda.empty_cache()
     moe = moe_phase(torch, dev)
     mesh = mesh_phase(torch, dev, moe)
+    torch.cuda.empty_cache()
+    seq = sp_pp_phase(torch, dev, dict(dense, forward_ms=fwd_ms),
+                      mesh["step_ms"])
+    k1.update(launches_ulysses_forward=seq["ulysses_forward"][0],
+              launches_ulysses_step=seq["ulysses_step"][0],
+              launches_ring_forward=seq["ring_forward"][0],
+              launches_pipelined_forward=seq["pipelined_forward"][0],
+              launches_pipelined_step=seq["pipelined_step"][0])
+    for k, i in ((k2, 1), (k3, 2)):
+        k.update(launches_ulysses_step=seq["ulysses_step"][i],
+                 launches_pipelined_step=seq["pipelined_step"][i])
     k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
               **moe["step_profile"][0]["flash_fwd_kernel"],
               launches_moe_forward=moe["forward"],

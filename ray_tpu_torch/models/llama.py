@@ -22,13 +22,17 @@ Under a mesh (``forward(..., mesh=...)``) every param carries the logical
 axes of ``param_logical_axes`` and the forward is the reference's global
 view in DTensor: the embedding is a one-hot matmul, activations are
 redistributed to their logical axes at the reference's constraint points,
-attention runs per shard in a region manual over (dp, fsdp, tp), and the
-MoE router routes the whole batch on every rank.  The loss is that of the
-global batch, and the grads of a step come back reduced.
+attention runs per shard in a region manual over (dp, fsdp, tp), or over
+'sp' for ring and Ulysses attention, and the MoE router routes the whole
+batch on every rank.  The loss is that of the global batch, and the grads
+of a step come back reduced.  Without a mesh, ring and Ulysses attention
+are the plain attention, as in the reference.
 
-Not ported yet (each raises ``NotImplementedError``): ring and Ulysses
-sequence-parallel attention and the pipelined forward; see ROADMAP.md
-Queue 1.
+``forward_pipelined`` splits the layers into 'pp' stages
+(``parallel.pipeline``): a region manual over 'pp', or over 'pp' and 'sp'
+when ring or Ulysses attention run over an 'sp' above 1 (seq sharded in
+the region, RoPE offset by the rank's chunk).  The actor pipeline's stage
+helpers are not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -40,13 +44,21 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.attention import (
+    flash_attention, mha_reference, per_shard)
 from ray_tpu_torch.ops.layers import (
     apply_rope, repeat_kv_heads, rms_norm, rope, swiglu)
 from ray_tpu_torch.ops.moe import moe_ffn
-from ray_tpu_torch.parallel.mesh import AXIS_DP, AXIS_FSDP, AXIS_TP, Mesh
+from ray_tpu_torch.ops.ring_attention import (
+    _ring_attention_sharded, ring_attention)
+from ray_tpu_torch.ops.ulysses import _ulysses_sharded, ulysses_attention
+from ray_tpu_torch.parallel.collectives import axis_index
+from ray_tpu_torch.parallel.mesh import (
+    AXIS_DP, AXIS_FSDP, AXIS_PP, AXIS_SP, AXIS_TP, Mesh, current_mesh,
+    use_mesh)
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, split_stages
 from ray_tpu_torch.parallel.sharding import (
-    LogicalAxisRules, P, manual_shard_map, shard_pytree,
+    DEFAULT_RULES, LogicalAxisRules, P, manual_shard_map, shard_pytree,
     with_logical_constraint)
 
 
@@ -63,7 +75,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    attn_impl: str = "flash"          # flash | reference (ring/ulysses later)
+    attn_impl: str = "flash"          # flash | ring | ulysses | reference
     num_experts: int = 0              # 0 = dense FFN
     num_selected: int = 2
     capacity_factor: float = 1.25
@@ -140,17 +152,14 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for the parts of the reference model not ported yet."""
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} needs sequence-parallel attention "
-            "(ops/ring_attention.py, ops/ulysses.py), not ported yet: "
-            "ROADMAP.md Queue 1, sequence parallelism")
-    if cfg.attn_impl not in ("flash", "reference"):
+    """Raise for an unknown attention implementation."""
+    if cfg.attn_impl not in ("flash", "reference", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
 def _attend(q, k, v, cfg: LlamaConfig):
+    """Flash attention, else the plain one (ring and Ulysses on one
+    device, as the reference)."""
     if cfg.attn_impl == "flash":
         # The kernel takes contiguous (b, s, h, d) tensors: a head shard
         # of a reshaped DTensor may be a strided view.
@@ -161,19 +170,37 @@ def _attend(q, k, v, cfg: LlamaConfig):
 
 
 def _attention(q, k, v, cfg: LlamaConfig, mesh):
-    """Attention of the configured impl.  Under a mesh it runs per shard,
-    manual over (dp, fsdp, tp): batch over (dp, fsdp), heads over tp,
-    seq whole, with k/v repeated to q's heads first, as the reference
+    """Attention of the configured impl.  Under a mesh, ring and Ulysses
+    attention take their own region manual over 'sp'; the others run per
+    shard, manual over (dp, fsdp, tp): batch over (dp, fsdp), heads over
+    tp, seq whole, with k/v repeated to q's heads first, as the reference
     runs its flash kernel (which has no partitioning rule).  The plain
     attention takes the same region: its masks are plain tensors."""
     if mesh is None:
         return _attend(q, k, v, cfg)
+    if cfg.attn_impl == "ring":
+        return ring_attention(q, k, v, causal=True, mesh=mesh)
+    if cfg.attn_impl == "ulysses":
+        return ulysses_attention(q, k, v, causal=True, mesh=mesh)
     k, v = repeat_kv_heads(q, k, v)
     spec = P((AXIS_DP, AXIS_FSDP), None, AXIS_TP, None)
     return manual_shard_map(
-        lambda q_, k_, v_: _attend(q_, k_, v_, cfg),
+        lambda q_, k_, v_: per_shard(
+            lambda a, b, c: _attend(a, b, c, cfg), q_, k_, v_),
         {AXIS_DP, AXIS_FSDP, AXIS_TP}, in_specs=(spec, spec, spec),
         out_specs=spec, mesh=mesh)(q, k, v)
+
+
+def _attention_sp_manual(q, k, v, cfg: LlamaConfig):
+    """Attention inside a region already manual over 'sp' (the pipeline):
+    the sharded bodies inline, no region of their own; Ulysses with the
+    plain attention, as the reference's."""
+    k, v = repeat_kv_heads(q, k, v)
+    sm_scale = cfg.head_dim ** -0.5
+    if cfg.attn_impl == "ulysses":
+        return _ulysses_sharded(q, k, v, sm_scale, True, AXIS_SP,
+                                use_flash=False)
+    return _ring_attention_sharded(q, k, v, sm_scale, True, AXIS_SP)
 
 
 def _make_cst(mesh, rules):
@@ -183,10 +210,12 @@ def _make_cst(mesh, rules):
 
 
 def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
-           cos: torch.Tensor, sin: torch.Tensor, mesh, rules
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+           cos: torch.Tensor, sin: torch.Tensor, mesh, rules,
+           sp_manual: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One transformer layer (the reference's ``_make_layer_fn`` body):
-    ``(x, this layer's router aux loss)``, None for a dense FFN."""
+    ``(x, this layer's router aux loss)``, None for a dense FFN.
+    ``sp_manual``: inside a region manual over 'sp' (the pipeline), where
+    ring or Ulysses attention run inline over the bound axis."""
     cst = _make_cst(mesh, rules)
     b, s = x.shape[0], x.shape[1]
     h = rms_norm(x, lp["attn_norm"])
@@ -198,7 +227,8 @@ def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
                                              cfg.head_dim)
     q = cst(apply_rope(q, cos, sin), ("batch", "seq", "heads", "head_dim"))
     k = cst(apply_rope(k, cos, sin), ("batch", "seq", "kv_heads", "head_dim"))
-    o = _attention(q, k, v, cfg, mesh).reshape(b, s, cfg.qkv_dim)
+    o = (_attention_sp_manual(q, k, v, cfg) if sp_manual
+         else _attention(q, k, v, cfg, mesh)).reshape(b, s, cfg.qkv_dim)
     x = x + cst(o @ lp["wo"].to(cfg.dtype), ("batch", "seq", "embed"))
     h = rms_norm(x, lp["mlp_norm"])
     if cfg.num_experts:
@@ -243,23 +273,95 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
         onehot = F.one_hot(tokens.long(), cfg.vocab_size).to(cfg.dtype)
         x = onehot @ params["embed"].to(cfg.dtype)
     x = cst(x, ("batch", "seq", "embed"))
-    # One unbind per stacked param: its backward stacks the layers' grads
-    # in one pass, where indexing w[i] per layer would add L zero-padded
-    # (L, ...) grads together.
-    layers = {n: w.unbind(0) for n, w in params["layers"].items()}
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
-        lp = {n: w[i] for n, w in layers.items()}
-        if remat:
-            x, a = checkpoint(_layer, x, lp, cfg, cos, sin, mesh, rules,
-                              use_reentrant=False)
-        else:
-            x, a = _layer(x, lp, cfg, cos, sin, mesh, rules)
-        if a is not None:
-            aux = aux + a
+    x, a = _run_layers(x, params["layers"], cfg, cos, sin, mesh, rules)
+    if a is not None:
+        aux = aux + a
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(cfg.dtype)).float()
     return cst(logits, ("batch", "seq", "vocab")), aux / cfg.num_layers
+
+
+def _run_layers(x, layers, cfg: LlamaConfig, cos, sin, mesh, rules,
+                sp_manual: bool = False):
+    """x through the stacked ``layers`` (each (L, ...)), each layer under
+    activation checkpointing when ``cfg.remat`` and grad are on:
+    ``(x, summed aux loss or None)``."""
+    # One unbind per stacked param: its backward stacks the layers' grads
+    # in one pass, where indexing w[i] per layer would add L zero-padded
+    # (L, ...) grads together.
+    unbound = {n: w.unbind(0) for n, w in layers.items()}
+    n_layers = len(next(iter(unbound.values())))
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
+    for i in range(n_layers):
+        lp = {n: w[i] for n, w in unbound.items()}
+        if remat:
+            x, a = checkpoint(_layer, x, lp, cfg, cos, sin, mesh, rules,
+                              sp_manual, use_reentrant=False)
+        else:
+            x, a = _layer(x, lp, cfg, cos, sin, mesh, rules, sp_manual)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def forward_pipelined(params: Dict[str, Any], tokens: torch.Tensor,
+                      cfg: LlamaConfig, *, mesh: Mesh,
+                      num_microbatches: int,
+                      rules: Optional[LogicalAxisRules] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pipeline-parallel forward: the layers split into ``pp`` stages
+    (``parallel.pipeline``), the embedding and the head on every stage.
+
+    Sequence parallelism composes: with ring or Ulysses attention over an
+    'sp' above 1 the pipeline region is manual over 'pp' and 'sp' (the
+    reference cannot nest manual regions): activations enter
+    seq-sharded, RoPE is offset by the 'sp' rank's chunk, and attention
+    runs inline over the bound axis.
+
+    The MoE aux loss is dropped inside the stages (a stage's output is
+    the activation alone), as in the reference: the aux returned is 0.
+    Params, tokens and results as for ``forward`` under a mesh."""
+    check_supported(cfg)
+    cst = _make_cst(mesh, rules)
+    tokens = shard_pytree(tokens, ("batch", "seq"), mesh, rules)
+    onehot = F.one_hot(tokens.long(), cfg.vocab_size).to(cfg.dtype)
+    x = cst(onehot @ params["embed"].to(cfg.dtype), ("batch", "seq", "embed"))
+
+    sp_manual = (cfg.attn_impl in ("ring", "ulysses")
+                 and mesh.shape[AXIS_SP] > 1)
+    if sp_manual:
+        # Inside the region 'seq' is rank-local and 'sp' is bound: strip
+        # it from the rules the stages see.
+        inner_rules = dict(rules if rules is not None else DEFAULT_RULES)
+        inner_rules["seq"] = None
+        x_spec = P(None, AXIS_SP, None)
+        manual_axes = {AXIS_PP, AXIS_SP}
+    else:
+        inner_rules, x_spec, manual_axes = rules, P(), {AXIS_PP}
+
+    def stage_fn(stage_params, x_mb):
+        inner = current_mesh()      # the region's free axes, or None
+        s = x_mb.shape[1]
+        offset = axis_index(AXIS_SP) * s if sp_manual else 0
+        cos, sin = rope(s, cfg.head_dim, cfg.rope_theta, offset=offset,
+                        device=x_mb.device)
+        if inner is not None:
+            cos, sin = (shard_pytree(t, (None, None), inner)
+                        for t in (cos, sin))
+        return _run_layers(x_mb, stage_params, cfg, cos, sin, inner,
+                           inner_rules, sp_manual)[0]
+
+    stages = split_stages(params["layers"], mesh.shape[AXIS_PP])
+    with use_mesh(mesh):
+        x = pipeline_apply(stage_fn, stages, x, mesh=mesh,
+                           num_microbatches=num_microbatches,
+                           manual_axes=manual_axes, x_spec=x_spec)
+    x = rms_norm(x, params["final_norm"])
+    logits = (x @ params["lm_head"].to(cfg.dtype)).float()
+    aux = shard_pytree(torch.zeros((), dtype=torch.float32,
+                                   device=logits.device), (), mesh)
+    return cst(logits, ("batch", "seq", "vocab")), aux
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],

@@ -28,12 +28,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Optional, Tuple
 
 import torch
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.layers import repeat_kv_heads
+from ray_tpu_torch.parallel.collectives import contiguous_stride
 
 NEG_INF = -1e30  # finite "minus infinity": keeps exp() NaN-free on masked rows
 _LOG2E = 1.4426950408889634
@@ -66,6 +68,27 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
                         v.float()).to(v.dtype)
+
+
+def per_shard(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``fn(q, k, v)``, an attention over q's heads (k and v repeated to
+    them), on each rank's local shards when q is a DTensor: a shard over
+    batch (dim 0) or heads (dim 2) stays, as attention keeps them apart;
+    any other placement is gathered first.  The output comes back at the
+    same placements.  Plain tensors go straight to ``fn``."""
+    # The serving path imports ops without DTensor, which takes a second
+    # to import: no DTensor exists before it is imported.
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is None or not isinstance(q, dtensor.DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) else dtensor.Replicate()
+          for p in q.placements]
+    q, k, v = (x.redistribute(mesh, pl) for x in (q, k, v))
+    o = fn(q.to_local(), k.to_local(), v.to_local()).contiguous()
+    return dtensor.DTensor.from_local(o, mesh, pl, run_check=False,
+                                      shape=q.shape,
+                                      stride=contiguous_stride(q.shape))
 
 
 def _prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:

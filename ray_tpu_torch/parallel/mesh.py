@@ -115,6 +115,7 @@ class Mesh:
             raise ValueError(f"mesh dimensions {unknown} are not axes of "
                              f"{MESH_AXES}")
         self.device_mesh = device_mesh
+        self._subs: Dict[Tuple[str, ...], "Mesh"] = {}
         self._dims = {a: names.index(a) for a in MESH_AXES if a in names}
         self.shape: Dict[str, int] = {
             a: device_mesh.size(self._dims[a]) if a in self._dims else 1
@@ -128,6 +129,17 @@ class Mesh:
     @property
     def device_type(self) -> str:
         return self.device_mesh.device_type
+
+    def sub(self, dims: Tuple[str, ...]) -> "Mesh":
+        """The mesh over the ``DeviceMesh`` dimensions ``dims`` alone (the
+        other axes at size 1), built once per mesh: slicing reuses the
+        dimensions' process groups."""
+        names = tuple(self.device_mesh.mesh_dim_names or ())
+        if dims == names:
+            return self
+        if dims not in self._subs:
+            self._subs[dims] = Mesh(self.device_mesh[dims])
+        return self._subs[dims]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {self.device_type!r})"
@@ -181,9 +193,11 @@ def mesh_axis_size(mesh: Mesh, axis: str) -> int:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Mesh) -> Iterator[Mesh]:
+def use_mesh(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
     """Make ``mesh`` the ambient mesh (the reference's ``jax.set_mesh``)
-    for the ``with`` block: ``manual_shard_map`` resolves against it."""
+    for the ``with`` block: ``manual_shard_map`` resolves against it.
+    None hides any outer mesh (the body of a region manual over every
+    axis of its mesh)."""
     token = _AMBIENT.set(mesh)
     try:
         yield mesh

@@ -31,12 +31,15 @@ Sharded (``mesh=``): the params and AdamW's moments are DTensors at the
 placements of ``param_logical_axes`` under the rules, the loss is that of
 the global batch, and the grads come back from autograd as DTensors,
 reduced over the batch axes and redistributed to their params'
-placements; the update runs on each rank's local shards.
+placements; the update runs on each rank's local shards.  With
+``pipelined=True`` the forward is ``forward_pipelined`` (the GPipe
+schedule over 'pp'), as the reference's ``compute_loss`` passes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -45,7 +48,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.models.convert import init_params
 from ray_tpu_torch.models.llama import (
-    LlamaConfig, loss_fn, param_logical_axes)
+    LlamaConfig, forward_pipelined, loss_fn, param_logical_axes)
 from ray_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ray_tpu_torch.parallel.sharding import LogicalAxisRules, shard_pytree
 
@@ -193,11 +196,13 @@ def init_train_state(cfg: LlamaConfig, optimizer: AdamW,
 
 def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                    cfg: LlamaConfig, *, mesh: Optional[Mesh] = None,
-                   rules: Optional[LogicalAxisRules] = None
+                   rules: Optional[LogicalAxisRules] = None,
+                   forward_fn: Optional[Callable] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               Dict[str, Any]]:
-    """``(total loss, metrics, grads)`` of ``loss_fn`` at ``params``;
-    grads have the params' tree and dtypes.  Under ``mesh`` they are
+    """``(total loss, metrics, grads)`` of ``loss_fn`` at ``params``
+    (with ``forward_fn`` in place of the forward, as ``loss_fn`` takes
+    it); grads have the params' tree and dtypes.  Under ``mesh`` they are
     DTensors at their params' placements.  Under a default process group
     without a mesh, grads, loss and perplexity are those of the whole
     batch (averaged over the ranks; for MoE, routed over it)."""
@@ -207,7 +212,8 @@ def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        total, metrics = loss_fn(live, batch, cfg, mesh=mesh, rules=rules)
+        total, metrics = loss_fn(live, batch, cfg, mesh=mesh, rules=rules,
+                                 forward_fn=forward_fn)
         grads = torch.autograd.grad(total, leaves)
     metrics = {k: m.detach() for k, m in metrics.items()}
     total = total.detach()
@@ -292,19 +298,29 @@ def _average_metrics(metrics, cfg: LlamaConfig):
 
 def make_train_step(cfg: LlamaConfig, optimizer: AdamW, *,
                     mesh: Optional[Mesh] = None,
-                    rules: Optional[LogicalAxisRules] = None
+                    rules: Optional[LogicalAxisRules] = None,
+                    pipelined: bool = False, num_microbatches: int = 1
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The train step.  Batch: {"tokens": (b, s+1) int}, the global batch
     under ``mesh`` (with the state from ``init_train_state(mesh=...)``).
-    Metrics: ``loss``, ``aux_loss``, ``perplexity`` and ``grad_norm``
-    (the global norm of the raw grads, before clipping), as 0-d f32
-    tensors."""
+    ``pipelined``: the forward is ``forward_pipelined`` over the mesh's
+    'pp' axis with ``num_microbatches`` (a mesh is needed).  Metrics:
+    ``loss``, ``aux_loss``, ``perplexity`` and ``grad_norm`` (the global
+    norm of the raw grads, before clipping), as 0-d f32 tensors."""
+    forward_fn = None
+    if pipelined:
+        if mesh is None:
+            raise ValueError("a pipelined train step needs a mesh")
+        forward_fn = functools.partial(
+            forward_pipelined, cfg=cfg, mesh=mesh,
+            num_microbatches=num_microbatches, rules=rules)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         _, metrics, grads = loss_and_grads(state.params, batch, cfg,
-                                           mesh=mesh, rules=rules)
+                                           mesh=mesh, rules=rules,
+                                           forward_fn=forward_fn)
         grad_norm = global_norm(tree_leaves(grads))
         optimizer.update_(grads, state.opt_state, state.params, grad_norm)
         state.step += 1

@@ -83,11 +83,21 @@ def test_init_params_layout_and_scale():
 @pytest.mark.parametrize("kw", [{"attn_impl": "ring"},
                                 {"attn_impl": "ulysses"}])
 def test_unported_parts_raise(kw):
+    """Ring and Ulysses attention are ported: without a mesh they are the
+    plain attention, as in the reference (logits within 1e-4 of its
+    forward); an attention the reference does not have raises."""
+    jcfg = jax_llama.LlamaConfig.tiny(**kw)
     cfg = LlamaConfig.tiny(**kw)
-    params = init_params(LlamaConfig.tiny(), torch.Generator().manual_seed(0),
-                         "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, torch.zeros((1, 4), dtype=torch.int64), cfg)
+    jparams = jax_llama.init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 16)).astype(np.int32)
+    want, _ = jax_llama.forward(jparams, jnp.asarray(toks), jcfg)
+    got, _ = forward(params, torch.from_numpy(toks), cfg)
+    assert np.max(np.abs(got.numpy() - np.asarray(want))) < 1e-4
+    bad = LlamaConfig.tiny(attn_impl=kw["attn_impl"] + "_2d")
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        forward(params, torch.from_numpy(toks), bad)
 
 
 def test_flagship_config_mirrors_graft_entry():

@@ -18,9 +18,10 @@ and the sharded Llama path, against the reference on CPU.
   reference's grad is at least 1e-6, with at most 0.1% of the elements
   beyond 1e-5 (``test_torch_llama_moe.py`` gives the reasons).
 - Slow lane: 8 gloo ranks with the reference's own shapes
-  (``dp_fsdp_tp`` (2, 2, 2), ``flash_shmap`` (dp=4, tp=2), MoE over
-  dp=2, ep=2, tp=2 with the reference attention, and the train step at
-  (2, 2, 2)).
+  (``dp_fsdp_tp`` (2, 2, 2), ``flash_shmap`` (dp=4, tp=2),
+  ``moe_ring_sp`` (dp=2, sp=2, ep=2), ``moe_ulysses`` (sp=4, ep=2), MoE
+  over dp=2, ep=2, tp=2 with the reference attention, and the train step
+  at (2, 2, 2)).
 
 The ranks run ``_rank_main`` in spawned processes, which import this
 module to unpickle it: it imports neither torch nor jax at its top.
@@ -46,9 +47,12 @@ LAYOUTS_2 = {
 LAYOUTS_8 = {
     "dp_fsdp_tp": ({}, dict(dp=2, fsdp=2, tp=2)),
     "flash_shmap": ({"attn_impl": "flash"}, dict(dp=4, tp=2)),
-    # The reference's moe_ring_sp (dp=2, sp=2, ep=2) with tp in the place
-    # of sp, whose ring attention is not ported yet.
+    # MoE beside tensor parallelism (not a layout of the reference's).
     "moe_dp_ep_tp": ({"num_experts": 4}, dict(dp=2, ep=2, tp=2)),
+    "moe_ring_sp": ({"num_experts": 4, "attn_impl": "ring"},
+                    dict(dp=2, sp=2, ep=2)),
+    "moe_ulysses": ({"num_experts": 4, "attn_impl": "ulysses"},
+                    dict(dp=1, sp=4, ep=2)),
 }
 
 
@@ -56,6 +60,24 @@ def _free_port():
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+def _gather(procs, out, n, timeout=600):
+    """{rank: result} of the ``n`` ``(rank, result)`` pairs the ranks put
+    on ``out``; fails as soon as a rank has died, not at the timeout."""
+    import queue
+    import time
+
+    got, deadline = {}, time.monotonic() + timeout
+    while len(got) < n:
+        try:
+            rank, res = out.get(timeout=2)
+            got[rank] = res
+        except queue.Empty:
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            assert not dead, f"a rank exited with {dead}"
+            assert time.monotonic() < deadline, "the ranks timed out"
+    return got
 
 
 def _rank_main(rank, world, port, cases, out):
@@ -99,7 +121,7 @@ def _rank_main(rank, world, port, cases, out):
                 "params": tree_map(lambda t: t.full_tensor().numpy(),
                                    state.params)}
         if rank == 0:
-            out.put(results)
+            out.put((rank, results))
     finally:
         dist.destroy_process_group()
 
@@ -162,7 +184,7 @@ def _spawn(world, layouts, batch_rows=4):
             if key not in refs:
                 refs[key] = _reference(cfg_kw, batch_rows)
                 assert np.array_equal(refs[key]["tokens"], toks)
-        got = out.get(timeout=600)
+        got = _gather(procs, out, 1)[0]
     finally:
         for p in procs:
             p.join(timeout=60)
