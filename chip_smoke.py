@@ -131,6 +131,31 @@ Phases, each fatal on failure:
    forward and per step (median of steps 2-3) beside phases 6, 8 and
    13, and profiles of the Ulysses forward and step, the ring forward and
    the pipelined step.  The group is destroyed before the phase ends.
+15. Main path 10, the 1F1B pipeline trainer (``train.pipeline_actors``).
+   (a) Its single-host path on the card (the default device): phase 8's
+   dense flagship and batch cut by ``pipeline_stage_params(params, 2)``,
+   ``make_pipeline_stage_fn``/``make_pipeline_loss_fn``, 4 microbatches,
+   phase 8's optimizer, 4 steps: the first loss within 1e-3 of phase 8's
+   first (bitwise logged), grad_norm within 2e-2 relative, a falling
+   loss, K1/K2/K3 96/48/48 a step (remat: each microbatch's layers
+   recompute K1); ms per step beside phases 8 and 14, and a profile.
+   (b) Through the port's runtime: the reference's integer toy (D = 4,
+   B = 8, 4 layers, ``sgd(1.0)``, M = 4) in 2 CPU stage actors named by
+   ``device="cpu"``: a 1F1B and a fill/drain step, losses and params
+   bitwise the single-host steps, at least 16 microbatch pushes, no
+   stage restart; a card-bound 2-stage trainer must raise (one card:
+   stages on cards need one each).
+16. Main path 11, rllib on the card.  One ``Learner.update`` (PPO loss,
+   256 rows) on the card against the same update on the CPU: every param
+   within 1e-4; V-trace on the card against the CPU within 1e-5.  PPO on
+   a numpy CartPole-v1 (gymnasium's dynamics, thresholds and 500-step
+   truncation; the chip machine has no gymnasium) with the reference
+   test's settings, its learner in an actor granted the card, 2 CPU
+   rollout workers: ``episode_reward_mean >= 120`` within 12
+   ``train()`` calls.  IMPALA with 2 aggregators and its learner on the
+   card behind the H2D queue (pinned host copies, non-blocking on a side
+   stream): finite losses, batches delivered through pinned copies.
+   APPO with its learner on the card: finite losses, target syncs.
 
 Launch counts are set to 0 just before each main path and read just after
 it (in paths 4-6, in the replica's or the trainer's process).  Prints the
@@ -146,6 +171,8 @@ import subprocess
 import sys
 import threading
 import time
+
+import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense tensor-core peak, bf16
@@ -194,19 +221,23 @@ def _profile(torch, run, reps):
     return busy, wall_us
 
 
-def device_ms(torch, run, reps, kernel=None, tries=5):
+def device_ms(torch, run, reps, kernel=None, tries=5, floor_ms=0.0):
     """Device time per call: the profiler's kernel times (only kernels
     whose name holds ``kernel`` when given).  A profiled run now and then
-    records no kernel at all (logged); raises when ``tries`` runs in a row
-    record no such kernel: a host-clock time is no device time."""
+    records no kernel at all, or only part of the call's kernels (logged);
+    raises when ``tries`` runs in a row record no such kernel, or less
+    than ``floor_ms``, the least time the card could take for the call's
+    work: a host-clock time or a partial record is no device time."""
     for i in range(tries):
         busy, _ = _profile(torch, run, reps)
-        us = sum(t for k, t in busy.items() if kernel is None or kernel in k)
-        if us:
-            return us / 1e3
-        log(f"profiled run {i + 1} of {tries} recorded no device time for "
-            f"{kernel or 'the call'} ({len(busy)} device records)")
-    raise RuntimeError(f"the profiler recorded no device time for "
+        ms = sum(t for k, t in busy.items()
+                 if kernel is None or kernel in k) / 1e3
+        if ms and ms >= floor_ms:
+            return ms
+        log(f"profiled run {i + 1} of {tries} recorded {ms} ms of device "
+            f"time for {kernel or 'the call'} (bound {floor_ms} ms; "
+            f"{len(busy)} device records: {sorted(busy)})")
+    raise RuntimeError(f"the profiler recorded no whole device time for "
                        f"{kernel or 'the call'}")
 
 
@@ -282,15 +313,17 @@ def k1_phase(torch, dev):
         def run():
             return attention.flash_attention_fwd(q, k, v, causal=causal)
 
-        ms = device_ms(torch, run, 20, kernel="flash_fwd_kernel")
+        nbytes, flops = k1_work(b, s, h, causal)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        ms = device_ms(torch, run, 20, kernel="flash_fwd_kernel",
+                       floor_ms=b_ms)
         plain_ms = device_ms(torch, lambda: attention._flash_fwd_plain(
-            qs, k2, v2, causal), 3)
+            qs, k2, v2, causal), 3, floor_ms=b_ms)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = device_ms(torch, lambda: sdpa(qt, kt, vt,
-                                               is_causal=causal), 20)
-        nbytes, flops = k1_work(b, s, h, causal)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                                               is_causal=causal), 20,
+                           floor_ms=b_ms)
         log(f"K1 {what} shape b={b} s={s} h={h} (device time per call): "
             f"kernel {ms} ms ({flops / ms / 1e9} TFLOP/s), plain "
             f"{plain_ms} ms, sdpa {lib_ms} ms, bound {b_ms} ms ({b_by}: "
@@ -392,27 +425,32 @@ def k23_phase(torch, dev):
         if what is None:
             continue
         sfx = "" if what == "flagship" else "_long"
+        work = k23_work(b, s, h, causal)
+        b2 = bound(*work["K2"], BF16_FLOPS)
+        n3 = work["K3"][0] + work["delta"][0]
+        b3 = bound(n3, work["K3"][1], BF16_FLOPS, f32_flops=work["delta"][1])
+        # The plain dq takes delta as an input; the SDPA backward does at
+        # least K2's work (dk and dv).
+        b3_plain = bound(*work["K3"], BF16_FLOPS)[0]
         ms3 = device_ms(torch, lambda: attention._flash_dq_cuda(
             qs, k, v, o, do, lse, causal, scale), 20,
-            kernel="flash_dq_kernel")
+            kernel="flash_dq_kernel", floor_ms=b3[0])
         ms2 = device_ms(torch, lambda: attention._flash_dkdv_cuda(
-            qs, k, v, do, lse, delta, causal), 20, kernel="flash_dkdv_kernel")
+            qs, k, v, do, lse, delta, causal), 20, kernel="flash_dkdv_kernel",
+            floor_ms=b2[0])
         plain2 = device_ms(torch, lambda: attention._flash_dkdv_plain(
-            qs, k2r, v2r, do, lse, delta_p, causal), 3)
+            qs, k2r, v2r, do, lse, delta_p, causal), 3, floor_ms=b2[0])
         plain3 = device_ms(torch, lambda: attention._flash_dq_plain(
-            qs, k2r, v2r, do, lse, delta_p, causal, scale), 3)
+            qs, k2r, v2r, do, lse, delta_p, causal, scale), 3,
+            floor_ms=b3_plain)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         ot = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2)
         lib_ms = device_ms(torch, lambda: torch.autograd.grad(
-            ot, (qt, kt, vt), dot, retain_graph=True), 20)
+            ot, (qt, kt, vt), dot, retain_graph=True), 20, floor_ms=b2[0])
         del ot
-        work = k23_work(b, s, h, causal)
-        b2 = bound(*work["K2"], BF16_FLOPS)
-        n3 = work["K3"][0] + work["delta"][0]
-        b3 = bound(n3, work["K3"][1], BF16_FLOPS, f32_flops=work["delta"][1])
         port_ms = ms2 + ms3
         log(f"K2/K3 {what} shape b={b} s={s} h={h} (device time per call): "
             f"K3 (with delta) {ms3} ms, K2 {ms2} ms, K2+K3 {port_ms} ms "
@@ -489,12 +527,14 @@ def k4_phase(torch, dev):
     def run():
         return paged_attention(q, kc, vc, bt, cl, window=1)
 
-    ms = device_ms(torch, run, 50, kernel="paged_decode_kernel")
-    call_ms = cuda_ms(run, 200)
-    wrapper_host_ms = host_ms(torch, run)
-    plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 1), 20)
     nbytes, flops = k4_work(q, cl_np, 1, 8)
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    ms = device_ms(torch, run, 50, kernel="paged_decode_kernel",
+                   floor_ms=b_ms)
+    call_ms = cuda_ms(run, 200)
+    wrapper_host_ms = host_ms(torch, run)
+    plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 1), 20,
+                         floor_ms=b_ms)
     log(f"K4 serving shape (device time per call): kernel {ms} ms, plain "
         f"{plain_ms} ms, bound {b_ms} ms ({b_by}: {nbytes} B, {flops} "
         f"flop); wrapper call {call_ms} ms (CUDA events, back to back), "
@@ -518,12 +558,13 @@ def k4_phase(torch, dev):
         diff = (out.float() - ref).abs()
         err = float(diff.max())
         n_out = int((diff > 1e-3 + 1e-2 * ref.abs()).sum())
-        ms = device_ms(torch, lambda: paged_attention(
-            q, kc, vc, bt, cl, window=window), 20, kernel="paged_decode")
-        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl,
-                                                  window), 5)
         nbytes, flops = k4_work(q, cl_np, window, 16)
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        ms = device_ms(torch, lambda: paged_attention(
+            q, kc, vc, bt, cl, window=window), 20, kernel="paged_decode",
+            floor_ms=b_ms)
+        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl,
+                                                  window), 5, floor_ms=b_ms)
         log(f"K4 general shape (bf16, B=8, h=6, d=128, bs=16, ctx "
             f"{int(cl_np.min())}-{int(cl_np.max())}, window={window}): "
             f"max_abs_err={err}, {n_out} elements outside 1e-3 + "
@@ -546,11 +587,12 @@ def k4_phase(torch, dev):
         err = float(diff.max())
         n_out = int((diff > 1e-3 + 1e-2 * ref.abs()).sum())
         del ref, diff
-        ms = device_ms(torch, lambda: paged_attention(q, kc, vc, bt, cl), 20,
-                       kernel="paged_decode")
-        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 0), 3)
         nbytes, flops = k4_work(q, cl_np, 0, 16)
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        ms = device_ms(torch, lambda: paged_attention(q, kc, vc, bt, cl), 20,
+                       kernel="paged_decode", floor_ms=b_ms)
+        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 0), 3,
+                             floor_ms=b_ms)
         log(f"K4 {what} shape (bf16, B={B}, h=32, d=128, bs=16, ctx 2048, "
             f"window=0): max_abs_err={err}, {n_out} elements outside 1e-3 + "
             f"1e-2*|plain|; kernel {ms} ms (bound / kernel {b_ms / ms}), "
@@ -1633,7 +1675,7 @@ def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
     ring attention (plain torch, as the reference's XLA path), and the
     GPipe pipeline (the one-stage shortcut at pp=1), each forward and
     train step held against phase 8.  Returns {path: [K1, K2, K3]
-    launches in it}."""
+    launches in it} and, under "step_ms", {path: ms per step}."""
     import socket
     import statistics
 
@@ -1669,7 +1711,7 @@ def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
                                          dtype=torch.int64, device=dev,
                                          generator=gen)}
         params = fresh_state().params
-        out = {}
+        out = {"step_ms": {}}
 
         def forward_path(name, cfg, forward_fn=None, n=3):
             """The loss under no_grad once with the launches counted, then
@@ -1709,6 +1751,7 @@ def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
             rel = abs(float(m0["grad_norm"]) - dense["grad_norm0"]) / \
                 dense["grad_norm0"]
             ms = statistics.median(times[1:])
+            out["step_ms"][name] = ms
             log(f"{name}: first loss {float(m0['loss'])} vs phase 8's "
                 f"{dense['loss0']} (<= 1e-3, bitwise "
                 f"{float(m0['loss']) == dense['loss0']}), grad_norm "
@@ -1792,6 +1835,346 @@ def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
         dist.destroy_process_group()
 
 
+PIPE_M = 4               # microbatches of the actor pipeline (phase 15)
+PIPE_STEPS = 4
+
+
+def _toy_stage_fn(sp, x):
+    """The reference's integer toy stage (``tests/test_pipeline_actors.py``):
+    x through the stage's stacked (D, D) matrices."""
+    for w in sp["w"].unbind(0):
+        x = x @ w
+    return x
+
+
+def _toy_loss_fn(y, t):
+    import torch
+
+    return torch.sum(y - t) / y.numel()
+
+
+def pipeline_actors_phase(torch, dev, dense, pipelined_ms):
+    """Main path 10: the 1F1B pipeline trainer.  (a) On the card, the
+    single-host path: phase 8's dense flagship and batch in 2 llama
+    stages, 4 microbatches, phase 8's optimizer, ``PIPE_STEPS`` steps,
+    held against phase 8.  (b) Through the port's runtime: the
+    reference's integer toy in 2 CPU stage actors, one 1F1B and one
+    fill/drain step bitwise the single-host step.  Returns the [K1, K2,
+    K3] launches of (a)."""
+    import statistics
+
+    import ray_tpu_torch
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.models import (
+        make_pipeline_loss_fn, make_pipeline_stage_fn, pipeline_stage_params)
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.train import default_optimizer, init_train_state, sgd
+    from ray_tpu_torch.train.pipeline_actors import PipelineTrainer
+
+    cfg = _flagship_cfg()
+    L, M = cfg.num_layers, PIPE_M
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+    params = init_train_state(cfg, opt, torch.Generator(device=dev)
+                              .manual_seed(0), dev).params
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 513), dtype=torch.int64,
+                           device=dev, generator=gen)
+    # The card is the default: the caller names nothing.
+    trainer = PipelineTrainer(
+        make_pipeline_stage_fn(cfg), make_pipeline_loss_fn(cfg),
+        pipeline_stage_params(params, 2), optimizer=opt,
+        num_microbatches=M, distributed=False,
+        device=None if dev.type == "cuda" else dev)
+    del params
+    check(not trainer.distributed, "the single-host path was not taken")
+    x, t = tokens[:, :-1], tokens[:, 1:]
+    torch.cuda.synchronize()
+    _build.reset_launches()                       # main path 10 starts
+    times, metrics = [], []
+    for _ in range(PIPE_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(trainer.step(x, t))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = [_build.launches[k] for k in keys]  # main path 10 ends
+    losses = [m["loss"] for m in metrics]
+    rel = abs(metrics[0]["grad_norm"] - dense["grad_norm0"]) / \
+        dense["grad_norm0"]
+    ms = statistics.median(times[1:])
+    per_step = [2 * L * M, L * M, L * M]
+    log(f"pipeline trainer, single-host path (2 stages, {M} microbatches, "
+        f"{dev}): first loss {losses[0]} vs phase 8's {dense['loss0']} "
+        f"(<= 1e-3, bitwise {losses[0] == dense['loss0']}), grad_norm "
+        f"{metrics[0]['grad_norm']} vs {dense['grad_norm0']} (relative "
+        f"{rel}, <= 2e-2); losses {losses}; K1/K2/K3 launches {launches} in "
+        f"{PIPE_STEPS} steps ({per_step} a step expected); {ms} ms per step "
+        f"(median of steps 2-{PIPE_STEPS}; all {times}) against phase 8's "
+        f"{dense['step_ms']} and phase 14's pipelined step {pipelined_ms}")
+    check(abs(losses[0] - dense["loss0"]) <= 1e-3,
+          "pipeline trainer: the first loss differs from phase 8's")
+    check(rel <= 2e-2, "pipeline trainer: grad_norm differs from phase 8's")
+    check(all(math.isfinite(v) for v in losses), "a non-finite loss")
+    check(losses[-1] < losses[0], "pipeline trainer: the loss did not fall")
+    check(launches == [n * PIPE_STEPS for n in per_step],
+          f"pipeline trainer: K1/K2/K3 launched {launches} times in "
+          f"{PIPE_STEPS} steps")
+    profile_run(torch, lambda: trainer.step(x, t), "pipeline-trainer step",
+                top=12)
+    del trainer
+
+    # (b) The object-plane data path: CPU stage actors, named by the caller.
+    rng = np.random.default_rng(0)
+    w = rng.integers(-2, 3, size=(4, 4, 4)).astype(np.float32)
+    xi = rng.integers(-2, 3, size=(8, 4)).astype(np.float32)
+    ti = rng.integers(-2, 3, size=(8, 4)).astype(np.float32)
+
+    def toy(**kw):
+        return PipelineTrainer(_toy_stage_fn, _toy_loss_fn,
+                               [{"w": w[:2]}, {"w": w[2:]}],
+                               optimizer=sgd(1.0), num_microbatches=M, **kw)
+
+    local = toy(distributed=False, device="cpu")
+    want = [local.step(xi, ti)["loss"] for _ in range(2)]
+    want_params = local.get_stage_params()
+    rt = ray_tpu_torch.init(num_cpus=4)
+    try:
+        cards = int(ray_tpu_torch.cluster_resources().get("TPU", 0))
+        try:
+            toy()
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        log(f"card-granted stage actors: the runtime counts {cards} card(s); "
+            f"a card-bound 2-stage trainer raised: {raised!r} (stages on "
+            f"cards need one card each: ROADMAP.md Queue 1 item 10)")
+        check(cards >= 2 or raised is not None,
+              "a card-bound trainer with too few cards did not raise")
+        t0 = time.perf_counter()
+        tr = toy(device="cpu")
+        check(tr.distributed, "the actor path was not taken")
+        start_s = time.perf_counter() - t0
+        step_ms, got = [], []
+        for schedule in ("1f1b", "fill_drain"):
+            t0 = time.perf_counter()
+            got.append(tr.step(xi, ti, schedule=schedule)["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        got_params = tr.get_stage_params()
+        stats = tr.stage_stats()
+        tr.shutdown()
+        time.sleep(1.5)     # the workers' counter flush
+        st = rt.transfer_stats()
+        same = got == want and all(
+            np.array_equal(a["w"], b["w"])
+            for a, b in zip(got_params, want_params))
+        log(f"pipeline trainer, 2 CPU stage actors: start {start_s} s; 1F1B "
+            f"then fill/drain step {step_ms} ms; losses {got} vs the "
+            f"single-host {want} (bitwise, params too: {same}); "
+            f"microbatch_pushes {st['microbatch_pushes']} (>= {4 * M}), "
+            f"stage_restarts {st['stage_restarts']}; stage stats {stats}")
+        check(same, "the actor steps differ from the single-host steps")
+        check(st["microbatch_pushes"] >= 4 * M, "too few microbatch pushes")
+        check(st["stage_restarts"] == 0, "a stage restarted")
+    finally:
+        ray_tpu_torch.shutdown()
+    return launches
+
+
+class CartPole:
+    """CartPole-v1 in numpy: gymnasium's ``classic_control/cartpole.py``
+    dynamics (Euler), thresholds (12 degrees, 2.4) and reward, with the
+    500-step truncation of its registration.  ``reset(seed=)`` seeds the
+    start state's U(-0.05, 0.05) draw."""
+
+    GRAVITY, MASSCART, MASSPOLE, LENGTH = 9.8, 1.0, 0.1, 0.5
+    FORCE_MAG, TAU, MAX_STEPS = 10.0, 0.02, 500
+    THETA_LIMIT, X_LIMIT = 12 * 2 * math.pi / 360, 2.4
+
+    def __init__(self):
+        import types
+
+        self.observation_space = types.SimpleNamespace(shape=(4,))
+        self.action_space = types.SimpleNamespace(n=2)
+        self._rng = np.random.default_rng()
+        self._state = None
+        self._steps = 0
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(-0.05, 0.05, size=(4,))
+        self._steps = 0
+        return np.array(self._state, np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self._state
+        total = self.MASSPOLE + self.MASSCART
+        pml = self.MASSPOLE * self.LENGTH
+        force = self.FORCE_MAG if action == 1 else -self.FORCE_MAG
+        cos, sin = math.cos(theta), math.sin(theta)
+        temp = (force + pml * theta_dot ** 2 * sin) / total
+        theta_acc = (self.GRAVITY * sin - cos * temp) / (
+            self.LENGTH * (4.0 / 3.0 - self.MASSPOLE * cos ** 2 / total))
+        x_acc = temp - pml * theta_acc * cos / total
+        x, x_dot = x + self.TAU * x_dot, x_dot + self.TAU * x_acc
+        theta, theta_dot = (theta + self.TAU * theta_dot,
+                            theta_dot + self.TAU * theta_acc)
+        self._state = (x, x_dot, theta, theta_dot)
+        self._steps += 1
+        terminated = bool(abs(x) > self.X_LIMIT
+                          or abs(theta) > self.THETA_LIMIT)
+        truncated = self._steps >= self.MAX_STEPS
+        return (np.array(self._state, np.float32), 1.0, terminated,
+                truncated, {})
+
+
+def rllib_phase(torch, dev):
+    """Main path 11: rllib on the card.  PPO with the learner in an actor
+    granted the card and CPU rollout workers learns CartPole; one update
+    on the card against the same update on the CPU; IMPALA with its
+    learner on the card behind the pinned H2D queue; APPO."""
+    import statistics
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import (
+        ActorCriticMLP, APPOConfig, ImpalaConfig, Learner, PPOConfig)
+    from ray_tpu_torch.rllib.ppo import ppo_loss
+    from ray_tpu_torch.rllib.sample_batch import (
+        ACTIONS, ADVANTAGES, LOGP, OBS, VALUE_TARGETS, SampleBatch)
+    from ray_tpu_torch.rllib.vtrace import vtrace
+    from ray_tpu_torch.train import adam
+
+    card = None if dev.type == "cuda" else "cpu"
+    # One update from fixed weights and a fixed batch, card against CPU.
+    rng = np.random.default_rng(0)
+    n = 256
+    batch = SampleBatch({
+        OBS: rng.normal(size=(n, 4)).astype(np.float32),
+        ACTIONS: rng.integers(2, size=n).astype(np.int32),
+        LOGP: (rng.normal(scale=0.1, size=n) - 0.7).astype(np.float32),
+        ADVANTAGES: rng.normal(size=n).astype(np.float32),
+        VALUE_TARGETS: rng.normal(size=n).astype(np.float32)})
+    learners = [Learner(ActorCriticMLP(4, 2), ppo_loss,
+                        optimizer=adam(3e-3, grad_clip=0.5), device=d)
+                for d in (card, "cpu")]
+    metrics = [lr.update(batch) for lr in learners]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(
+        *(_np_leaves(lr.get_weights()) for lr in learners)))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        learners[0].update(batch)
+    update_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"rllib learner update ({n} rows) on {learners[0].device} vs cpu: "
+        f"total_loss {metrics[0]['total_loss']} vs "
+        f"{metrics[1]['total_loss']}, max |param diff| {diff} (<= 1e-4); "
+        f"{update_ms} ms per update on the card (host clock, 20 updates)")
+    check(diff <= 1e-4, "the learner update on the card differs from the "
+          "CPU's")
+    # V-trace on the card against the CPU on fixed arrays.
+    T, B = 50, 4
+    arrs = [rng.normal(scale=0.5, size=(T, B)) - 1.0,
+            rng.normal(scale=0.5, size=(T, B)) - 1.0,
+            rng.normal(size=(T, B)), rng.normal(size=(T, B)),
+            rng.normal(size=(B,)), 0.99 * (rng.random((T, B)) > 0.1)]
+    arrs = [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+    on_card = vtrace(*(a.to(dev) for a in arrs))
+    on_cpu = vtrace(*arrs)
+    vdiff = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(on_card, on_cpu))
+    log(f"V-trace (T={T}, B={B}) on {dev} vs cpu: max |diff| {vdiff} "
+        f"(<= 1e-5)")
+    check(vdiff <= 1e-5, "V-trace on the card differs from the CPU's")
+
+    ray_tpu_torch.init(num_cpus=6)
+    try:
+        # PPO: the reference test's settings, the learner granted the card.
+        config = (PPOConfig()
+                  .environment(CartPole)
+                  .rollouts(num_rollout_workers=2, num_envs_per_worker=2,
+                            rollout_fragment_length=256)
+                  .training(lr=3e-3, num_sgd_iter=8, sgd_minibatch_size=256,
+                            entropy_coeff=0.01)
+                  .resources(remote_learner=True, learner_num_tpus=1,
+                             learner_device=card))
+        t0 = time.perf_counter()
+        algo = config.build()
+        build_s = time.perf_counter() - t0
+        learner_dev = algo.learner_group.device()
+        best, rewards, train_ms = 0.0, [], []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            result = algo.train()
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+            rewards.append(result.get("episode_reward_mean", 0.0))
+            best = max(best, rewards[-1])
+            if best >= 120.0:
+                break
+        algo.stop()
+        log(f"PPO on CartPole (numpy CartPole-v1), learner in an actor on "
+            f"{learner_dev}, 2 CPU rollout workers x 2 envs: build "
+            f"{build_s} s; episode_reward_mean {rewards} (best {best}, >= "
+            f"120); ms per train() {train_ms} (median "
+            f"{statistics.median(train_ms)}; 32 updates each)")
+        check(learner_dev.startswith(dev.type), "the PPO learner is not on "
+              "the card")
+        check(best >= 120.0, f"PPO did not learn CartPole: best {best}")
+
+        # IMPALA: learner in this process on the card, behind the H2D queue.
+        algo = (ImpalaConfig().environment(CartPole)
+                .rollouts(num_rollout_workers=2, num_envs_per_worker=2,
+                          rollout_fragment_length=64)
+                .training(lr=4e-3, entropy_coeff=0.01, num_aggregators=2,
+                          max_batches_per_step=4)
+                .resources(learner_device=card)).build()
+        check(algo._h2d is not None, "IMPALA's H2D queue is off")
+        losses, rewards, train_ms = [], [], []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            result = algo.train()
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(result.get("total_loss", float("nan")))
+            rewards.append(result.get("episode_reward_mean"))
+        qs = algo._h2d.queue_stats()
+        algo.stop()
+        log(f"IMPALA (2 aggregators, impala_queue_depth 2, learner on "
+            f"{dev}): losses {losses}; episode_reward_mean {rewards}; ms per "
+            f"train() {train_ms}; queue_stats {qs}")
+        check(all(math.isfinite(v) for v in losses), "IMPALA: a non-finite "
+              "loss")
+        check(qs["gets"] > 0, "IMPALA: the H2D queue delivered nothing")
+        check(dev.type != "cuda" or qs["pinned_copies"] > 0,
+              "IMPALA: no pinned copy reached the card")
+
+        # APPO: IMPALA's pipeline, PPO's surrogate, a target network.
+        algo = (APPOConfig().environment(CartPole)
+                .rollouts(num_rollout_workers=2, num_envs_per_worker=2,
+                          rollout_fragment_length=64)
+                .training(lr=4e-3, max_batches_per_step=4)
+                .resources(learner_device=card)).build()
+        losses, rewards = [], []
+        for _ in range(6):
+            result = algo.train()
+            losses.append(result.get("total_loss", float("nan")))
+            rewards.append(result.get("episode_reward_mean"))
+        syncs = algo.target_updates
+        algo.stop()
+        log(f"APPO (learner on {dev}): losses {losses}; episode_reward_mean "
+            f"{rewards}; target-network syncs {syncs}")
+        check(all(math.isfinite(v) for v in losses), "APPO: a non-finite "
+              "loss")
+        check(syncs >= 1, "APPO: the target network was never synced")
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _np_leaves(v)]
+    return [np.asarray(tree)]
+
+
 def main():
     import torch
 
@@ -1849,6 +2232,13 @@ def main():
     for k, i in ((k2, 1), (k3, 2)):
         k.update(launches_ulysses_step=seq["ulysses_step"][i],
                  launches_pipelined_step=seq["pipelined_step"][i])
+    torch.cuda.empty_cache()
+    pipe = pipeline_actors_phase(torch, dev, dense,
+                                 seq["step_ms"]["pipelined_step"])
+    for k, n in zip((k1, k2, k3), pipe):
+        k["launches_pipeline_actors_step"] = n
+    torch.cuda.empty_cache()
+    rllib_phase(torch, dev)
     k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
               **moe["step_profile"][0]["flash_fwd_kernel"],
               launches_moe_forward=moe["forward"],

@@ -16,9 +16,10 @@ Two planes, as in the reference:
       @ray.remote(num_gpus=1)
       def f(x): ...
 
-- The compute layer (``entry``, ``models``, ``ops``, ``train`` and
-  ``serve.gpu_replica``): the flagship Llama forward and train step and
-  the paged serving decoder, each Pallas kernel of the reference a
+- The compute layer (``entry``, ``models``, ``ops``, ``train``,
+  ``rllib`` and ``serve.gpu_replica``): the flagship Llama forward, train
+  step and pipeline trainer, the RL learners and the paged serving
+  decoder, each Pallas kernel of the reference a
   hand-written CUDA kernel for Hopper (``sm_90a``) with a plain PyTorch
   version beside it for CPU tensors.  Entry points default to ``cuda:0``
   and raise without a card unless ``device="cpu"`` is given.  These
@@ -60,7 +61,7 @@ from ray_tpu_torch import exceptions
 __version__ = "0.1.0"
 
 # The compute layer imports torch: loaded on first use.
-_LAZY = ("entry", "models", "ops", "serve", "train")
+_LAZY = ("entry", "models", "ops", "rllib", "serve", "train", "tune")
 
 
 def __getattr__(name):

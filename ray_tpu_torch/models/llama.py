@@ -31,8 +31,10 @@ are the plain attention, as in the reference.
 ``forward_pipelined`` splits the layers into 'pp' stages
 (``parallel.pipeline``): a region manual over 'pp', or over 'pp' and 'sp'
 when ring or Ulysses attention run over an 'sp' above 1 (seq sharded in
-the region, RoPE offset by the rank's chunk).  The actor pipeline's stage
-helpers are not ported yet (ROADMAP.md Queue 1).
+the region, RoPE offset by the rank's chunk).  The actor pipeline
+(``train.pipeline_actors``) takes the stage helpers
+``pipeline_stage_params``, ``make_pipeline_stage_fn`` and
+``make_pipeline_loss_fn``.
 """
 
 from __future__ import annotations
@@ -362,6 +364,67 @@ def forward_pipelined(params: Dict[str, Any], tokens: torch.Tensor,
     aux = shard_pytree(torch.zeros((), dtype=torch.float32,
                                    device=logits.device), (), mesh)
     return cst(logits, ("batch", "seq", "vocab")), aux
+
+
+def pipeline_stage_params(params: Dict[str, Any],
+                          num_stages: int) -> list:
+    """The params of each stage of the ACTOR pipeline
+    (``train.pipeline_actors``): the stacked layers cut into
+    ``num_stages`` contiguous slices, the embedding on stage 0, the final
+    norm and the LM head on the last stage, so each stage holds only its
+    own tensors.  The slices are views of ``params``."""
+    layers = params["layers"]
+    n_layers = next(iter(layers.values())).shape[0]
+    if n_layers % num_stages:
+        raise ValueError(
+            f"{n_layers} layers not divisible by {num_stages} stages")
+    per = n_layers // num_stages
+    out = []
+    for s in range(num_stages):
+        sp: Dict[str, Any] = {
+            "layers": {k: v[s * per:(s + 1) * per]
+                       for k, v in layers.items()}}
+        if s == 0:
+            sp["embed"] = params["embed"]
+        if s == num_stages - 1:
+            sp["final_norm"] = params["final_norm"]
+            sp["lm_head"] = params["lm_head"]
+        out.append(sp)
+    return out
+
+
+def make_pipeline_stage_fn(cfg: LlamaConfig) -> Callable:
+    """The one stage function of the actor pipeline: embeds on the stage
+    holding ``embed`` (its input is then the tokens), runs the stage's
+    layers (``_run_layers``: flash attention K1-K3 on the card, each
+    layer under activation checkpointing when ``cfg.remat`` and grad are
+    on), and projects to f32 logits on the stage holding ``lm_head``."""
+    check_supported(cfg)
+
+    def stage_fn(sp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        if "embed" in sp:
+            x = sp["embed"][x].to(cfg.dtype)
+        cos, sin = rope(x.shape[1], cfg.head_dim, cfg.rope_theta,
+                        device=x.device)
+        x, _ = _run_layers(x, sp["layers"], cfg, cos, sin, None, None)
+        if "lm_head" in sp:
+            x = rms_norm(x, sp["final_norm"])
+            x = (x @ sp["lm_head"].to(cfg.dtype)).float()
+        return x
+
+    return stage_fn
+
+
+def make_pipeline_loss_fn(cfg: LlamaConfig) -> Callable:
+    """``(logits, targets) -> mean next-token NLL``: ``loss_fn``'s loss
+    for the actor pipeline's last stage."""
+
+    def pipeline_loss(logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+        logp = F.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None].long()).mean()
+
+    return pipeline_loss
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],

@@ -5,8 +5,9 @@ The trainer, backend executor and worker group are copies of the
 reference's on the port's runtime, with ``TorchConfig`` (torch.distributed
 over NCCL or gloo) in place of ``JaxConfig``.  The train step
 (``core``) imports torch, so it loads on first use: importing the
-trainer in a CPU worker imports no torch.  The pipeline actors are not
-ported yet (ROADMAP.md Queue 1).
+trainer in a CPU worker imports no torch.  The 1F1B pipeline actors
+(``train.pipeline_actors``: ``PipelineTrainer``, ``PipelineStage``)
+import torch only inside their methods.
 """
 
 import importlib as _importlib
@@ -18,9 +19,9 @@ from ray_tpu_torch.train.trainer import (
     BaseTrainer, DataParallelTrainer, TorchTrainer)
 from ray_tpu_torch.train.worker_group import WorkerGroup
 
-_CORE = ("AdamW", "TrainState", "default_optimizer", "init_train_state",
-         "loss_and_grads", "make_train_step", "train_state_from_params",
-         "warmup_cosine_decay_schedule")
+_CORE = ("AdamW", "TrainState", "adam", "default_optimizer",
+         "init_train_state", "loss_and_grads", "make_train_step", "sgd",
+         "train_state_from_params", "warmup_cosine_decay_schedule")
 
 
 def __getattr__(name):

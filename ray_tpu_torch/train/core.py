@@ -51,10 +51,8 @@ from ray_tpu_torch.models.llama import (
     LlamaConfig, forward_pipelined, loss_fn, param_logical_axes)
 from ray_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ray_tpu_torch.parallel.sharding import LogicalAxisRules, shard_pytree
+from ray_tpu_torch.train.trees import tree_leaves, tree_map, tree_unflatten
 
-# AdamW's moment decays and epsilon, as the reference's default_optimizer
-# gives them to optax.adamw (core.py:96).
-_B1, _B2, _EPS = 0.9, 0.95, 1e-8
 # Elements per all-reduce bucket when averaging grads over a process
 # group (f32: 128 MB a bucket, a few calls for the flagship's 162M).
 _BUCKET_NUMEL = 32 << 20
@@ -67,20 +65,6 @@ class TrainState:
     step: int
     params: Dict[str, Any]
     opt_state: Dict[str, Any]
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` over the tensor leaves of nested dicts, in sorted key order
-    (the order of ``tree_leaves``)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
-
-
-def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    out: List[torch.Tensor] = []
-    tree_map(out.append, tree)
-    return out
 
 
 def _local(x: torch.Tensor) -> torch.Tensor:
@@ -121,43 +105,87 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """optax's ``chain(clip_by_global_norm(grad_clip), adamw(schedule,
-    b1=0.9, b2=0.95, eps=1e-8, weight_decay))`` on a param tree, updating
-    in place.
+    b1, b2, eps, weight_decay))`` on a param tree, updating in place
+    (the flagship's: b1=0.9, b2=0.95, eps=1e-8, as the reference's
+    ``default_optimizer`` gives them to optax.adamw, core.py:96).
 
     Clipping scales by ``grad_clip / norm`` only when ``norm >=
-    grad_clip``.  The decay is decoupled and applies to every leaf (norms
-    included), and the learning rate is ``schedule(count)`` at the count
-    BEFORE the update, so a warmup from 0 makes the first step a no-op."""
+    grad_clip``; ``grad_clip=None`` does not clip.  The decay is
+    decoupled and applies to every leaf (norms included), and the
+    learning rate is ``schedule(count)`` at the count BEFORE the update,
+    so a warmup from 0 makes the first step a no-op."""
     schedule: Callable[[int], float]
     weight_decay: float
-    grad_clip: float
+    grad_clip: Optional[float]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
 
-    def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
+    def init(self, params: Any) -> Dict[str, Any]:
         return {"count": 0, "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update_(self, grads: Dict[str, Any], opt_state: Dict[str, Any],
-                params: Dict[str, Any], grad_norm: torch.Tensor) -> None:
+    def update_(self, grads: Any, opt_state: Dict[str, Any], params: Any,
+                grad_norm: torch.Tensor) -> None:
         """One step on ``params`` and ``opt_state`` in place;
         ``grad_norm`` is ``global_norm`` of ``grads``.  Sharded leaves
         (grads at their params' placements) update their local shards."""
+        b1, b2, eps = self.b1, self.b2, self.eps
         count = opt_state["count"]
         lr = self.schedule(count)
-        bc1 = 1.0 - _B1 ** (count + 1)
-        bc2 = 1.0 - _B2 ** (count + 1)
-        keep = grad_norm < self.grad_clip
-        gs = [torch.where(keep, g, g / grad_norm * self.grad_clip)
-              for g in map(_local, tree_leaves(grads))]
+        bc1 = 1.0 - b1 ** (count + 1)
+        bc2 = 1.0 - b2 ** (count + 1)
+        gs = list(map(_local, tree_leaves(grads)))
+        if self.grad_clip is not None:
+            keep = grad_norm < self.grad_clip
+            gs = [torch.where(keep, g, g / grad_norm * self.grad_clip)
+                  for g in gs]
         for p, g, m, v in zip(map(_local, tree_leaves(params)), gs,
                               map(_local, tree_leaves(opt_state["mu"])),
                               map(_local, tree_leaves(opt_state["nu"]))):
-            m.mul_(_B1).add_(g, alpha=1.0 - _B1)
-            v.mul_(_B2).addcmul_(g, g, value=1.0 - _B2)
-            upd = (m / bc1) / ((v / bc2).sqrt() + _EPS)
-            upd.add_(p, alpha=self.weight_decay)
+            m.mul_(b1).add_(g, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            upd = (m / bc1) / ((v / bc2).sqrt() + eps)
+            if self.weight_decay:
+                upd.add_(p, alpha=self.weight_decay)
             p.add_(upd, alpha=-lr)
         opt_state["count"] = count + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """optax.sgd(lr): ``p + (-lr * g)``, in place, with the same
+    ``init``/``update_`` contract as ``AdamW`` (no state)."""
+    lr: float
+
+    def init(self, params: Any) -> Dict[str, Any]:
+        return {}
+
+    @torch.no_grad()
+    def update_(self, grads: Any, opt_state: Dict[str, Any], params: Any,
+                grad_norm: torch.Tensor) -> None:
+        for p, g in zip(map(_local, tree_leaves(params)),
+                        map(_local, tree_leaves(grads))):
+            p.add_(g * -self.lr)
+
+
+def _constant(value: float) -> Callable[[int], float]:
+    return lambda count: value
+
+
+def sgd(lr: float) -> SGD:
+    """optax.sgd(lr) (the actor pipeline's default, at 1e-2)."""
+    return SGD(lr)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         grad_clip: Optional[float] = None) -> AdamW:
+    """optax.adam(lr, b1, b2, eps), behind ``clip_by_global_norm(grad_clip)``
+    when it is given: optax's ``chain(clip_by_global_norm, adam)``, the
+    rllib learners' optimizer."""
+    return AdamW(_constant(lr), weight_decay=0.0, grad_clip=grad_clip,
+                 b1=b1, b2=b2, eps=eps)
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
@@ -209,8 +237,7 @@ def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     if mesh is None and cfg.num_experts and _group_size() > 1:
         return _moe_over_group(params, batch, cfg)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    it = iter(leaves)
-    live = tree_map(lambda _: next(it), params)
+    live = tree_unflatten(params, leaves)
     with torch.enable_grad():
         total, metrics = loss_fn(live, batch, cfg, mesh=mesh, rules=rules,
                                  forward_fn=forward_fn)
@@ -224,8 +251,7 @@ def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     elif _group_size():
         grads = _average_grads(grads)
         total, metrics = _average_metrics(metrics, cfg)
-    it = iter(grads)
-    return total, metrics, tree_map(lambda _: next(it), params)
+    return total, metrics, tree_unflatten(params, grads)
 
 
 def _group_size() -> int:
