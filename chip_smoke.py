@@ -156,6 +156,26 @@ Phases, each fatal on failure:
    card behind the H2D queue (pinned host copies, non-blocking on a side
    stream): finite losses, batches delivered through pinned copies.
    APPO with its learner on the card: finite losses, target syncs.
+17. Main path 12, rllib's off-policy, offline and multi-agent half and
+   tune on the card; no TPU kernel lies on it, so it adds no launch
+   count.  (a) One update of DQN, SAC (the same two normal draws), CQL
+   and BC on the card against the CPU from the same weights and batch:
+   every param within 1e-4; ms per update.  (b) DQN on the numpy
+   CartPole-v1 with the reference slow test's settings (2 CPU rollout
+   workers x 2 envs, fragment 64, 500 steps before learning, epsilon over
+   4000 steps, target sync every 500), its learner on the card:
+   ``episode_reward_mean >= 100`` within 30 ``train()`` calls, finite
+   losses, epsilon falling, a target sync.  (c) Two-policy PPO on a numpy
+   copy of the reference test's ``TwoAgentMatch``, learners on the card:
+   ``episode_reward_mean > 9.0`` after 12 calls, agent steps twice the
+   env steps.  (d) BC and CQL from logged data written by the port's
+   ``JsonWriter``: BC's ``bc_loss < 0.9`` after 10 calls and its actions
+   matching the cue on >= 75% of obs, CQL's losses finite.  (e) SAC on a
+   numpy Pendulum-v1 (gymnasium's dynamics, limits and 200-step
+   truncation): 3 calls past warm-up with finite losses, alpha moved.
+   (f) ``tune.run(PPO)`` over a 2-point lr grid, each trial granted the
+   card (``resources_per_trial={"CPU": 1, "TPU": 1}``), one at a time: 2
+   trials, no error, each trial's learner on ``cuda`` as read inside it.
 
 Launch counts are set to 0 just before each main path and read just after
 it (in paths 4-6, in the replica's or the trainer's process).  Prints the
@@ -2167,6 +2187,418 @@ def rllib_phase(torch, dev):
         ray_tpu_torch.shutdown()
 
 
+class Pendulum:
+    """Pendulum-v1 in numpy: gymnasium's ``classic_control/pendulum.py``
+    dynamics (g = 10, m = l = 1, dt = 0.05), limits (speed 8, torque 2),
+    cost and start state, with the 200-step truncation of its
+    registration."""
+
+    MAX_SPEED, MAX_TORQUE, DT, G, M, L, MAX_STEPS = \
+        8.0, 2.0, 0.05, 10.0, 1.0, 1.0, 200
+
+    def __init__(self):
+        import types
+
+        self.observation_space = types.SimpleNamespace(shape=(3,))
+        self.action_space = types.SimpleNamespace(
+            shape=(1,), low=np.array([-2.0], np.float32),
+            high=np.array([2.0], np.float32))
+        self._rng = np.random.default_rng()
+        self._state = None
+        self._steps = 0
+
+    def _obs(self):
+        th, thdot = self._state
+        return np.array([math.cos(th), math.sin(th), thdot], np.float32)
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(-np.array([math.pi, 1.0]),
+                                        np.array([math.pi, 1.0]))
+        self._steps = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        th, thdot = self._state
+        u = float(np.clip(np.asarray(action).reshape(-1)[0],
+                          -self.MAX_TORQUE, self.MAX_TORQUE))
+        norm_th = ((th + math.pi) % (2 * math.pi)) - math.pi
+        cost = norm_th ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        thdot = thdot + (3 * self.G / (2 * self.L) * math.sin(th)
+                         + 3.0 / (self.M * self.L ** 2) * u) * self.DT
+        thdot = float(np.clip(thdot, -self.MAX_SPEED, self.MAX_SPEED))
+        self._state = (th + thdot * self.DT, thdot)
+        self._steps += 1
+        return self._obs(), -cost, False, self._steps >= self.MAX_STEPS, {}
+
+
+class TwoAgentMatch:
+    """The reference test's cooperative two-agent env
+    (``tests/test_rllib_ma_offline.py``): each agent sees a one-hot cue
+    and must answer with the matching action, 8 steps an episode (16.0 at
+    most, ~4 at random).  A ``MultiAgentEnv`` by its interface."""
+
+    N, HORIZON = 4, 8
+    agent_ids = ["a0", "a1"]
+
+    def __init__(self):
+        import types
+
+        self.observation_space = types.SimpleNamespace(shape=(4,))
+        self.action_space = types.SimpleNamespace(n=4)
+        self._rng = np.random.default_rng(0)
+        self._t = 0
+        self._cues = {}
+
+    def _obs(self):
+        out = {}
+        for a in self.agent_ids:
+            cue = int(self._rng.integers(self.N))
+            self._cues[a] = cue
+            out[a] = np.eye(self.N, dtype=np.float32)[cue]
+        return out
+
+    def reset(self, *, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        self._t += 1
+        rews = {a: float(action_dict[a] == self._cues[a])
+                for a in self.agent_ids}
+        done = self._t >= self.HORIZON
+        terms = {a: done for a in self.agent_ids}
+        terms["__all__"] = done
+        return self._obs(), rews, terms, {"__all__": False}, {}
+
+
+def logged_batches(path, n_batches=24, steps=64, good=0.8, seed=0):
+    """The reference test's logged data (``_logged_batches``): the
+    behavior policy answers the cue with probability ``good``, else
+    uniformly, its action probabilities logged; 8-step episodes.  Written
+    by the port's ``JsonWriter``."""
+    from ray_tpu_torch.rllib import JsonWriter, SampleBatch
+    from ray_tpu_torch.rllib.sample_batch import (
+        ACTIONS, DONES, LOGP, NEXT_OBS, OBS, REWARDS)
+
+    rng = np.random.default_rng(seed)
+    w = JsonWriter(path)
+    n = 4
+    for _ in range(n_batches):
+        cues = rng.integers(n, size=steps)
+        greedy = rng.random(steps) < good
+        acts = np.where(greedy, cues, rng.integers(n, size=steps))
+        p = good * (acts == cues) + (1 - good) / n
+        dones = np.zeros(steps, bool)
+        dones[7::8] = True
+        w.write(SampleBatch({
+            OBS: np.eye(n, dtype=np.float32)[cues],
+            ACTIONS: acts.astype(np.int32),
+            REWARDS: (acts == cues).astype(np.float32), DONES: dones,
+            LOGP: np.log(p).astype(np.float32),
+            NEXT_OBS: np.eye(n, dtype=np.float32)[rng.integers(n,
+                                                               size=steps)],
+        }))
+    w.close()
+    return path
+
+
+def _tree_diff(a, b):
+    from ray_tpu_torch.train.pipeline_actors import to_numpy_tree
+
+    return max(float(np.abs(x - y).max()) for x, y in zip(
+        _np_leaves(to_numpy_tree(a)), _np_leaves(to_numpy_tree(b))))
+
+
+def _host_ms(torch, fn, n=20):
+    """Host ms per call of ``fn`` over ``n`` calls, ending in a
+    synchronise (the update's whole cost as its caller sees it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def offpolicy_updates(torch, card, data_path):
+    """Phase 17 (a): one update of DQN, SAC, CQL and BC on the card
+    against the same update on the CPU, from the same weights and batch
+    (and for SAC the same two normal draws): every param (and
+    ``log_alpha``) within 1e-4; ms per update on the card."""
+    from ray_tpu_torch.rllib import BCConfig, CQLConfig, DQNConfig, SACConfig
+    from ray_tpu_torch.rllib.sample_batch import (
+        ACTIONS, DONES, NEXT_OBS, OBS, REWARDS)
+    from ray_tpu_torch.train.pipeline_actors import (
+        to_device_tree, to_numpy_tree)
+
+    rng = np.random.default_rng(0)
+    n = 256
+    out = {}
+
+    def pair(config):
+        algos = [config.copy().resources(learner_device=d).build()
+                 for d in (card, "cpu")]
+        return algos
+
+    def on(dev, batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in batch.items()}
+
+    # DQN: prioritized-replay weights, double-Q, the clip of 10.
+    algos = pair(DQNConfig().environment(CartPole)
+                 .rollouts(num_rollout_workers=0))
+    algos[1].params = to_device_tree(to_numpy_tree(algos[0].params), "cpu")
+    algos[1].target_params = to_device_tree(
+        to_numpy_tree(algos[0].target_params), "cpu")
+    batch = {OBS: rng.normal(size=(n, 4)).astype(np.float32),
+             ACTIONS: rng.integers(2, size=n).astype(np.int32),
+             REWARDS: np.ones(n, np.float32),
+             NEXT_OBS: rng.normal(size=(n, 4)).astype(np.float32),
+             DONES: rng.random(n) < 0.05,
+             "weights": rng.uniform(0.3, 1.0, n).astype(np.float32)}
+    (_, a0), (_, a1) = (a._update(on(a._dev, batch)) for a in algos)
+    diff = _tree_diff(algos[0].params, algos[1].params)
+    td = float((a0["td_errors"].cpu() - a1["td_errors"]).abs().max())
+    out["dqn"] = _host_ms(torch, lambda: algos[0]._update(
+        on(algos[0]._dev, batch)))
+    log(f"DQN update ({n} rows) on {algos[0]._dev} vs cpu: max |param "
+        f"diff| {diff}, max |td diff| {td} (<= 1e-4); {out['dqn']} ms per "
+        f"update on the card (host clock, 20 updates)")
+    check(diff <= 1e-4 and td <= 1e-4, "DQN: the update on the card "
+          "differs from the CPU's")
+    for a in algos:
+        a.stop()
+
+    # SAC: one whole update on the same two draws.
+    algos = pair(SACConfig().environment(Pendulum)
+                 .rollouts(num_rollout_workers=0))
+    for k in ("pi_params", "q_params", "q_target", "log_alpha"):
+        setattr(algos[1], k, to_device_tree(
+            to_numpy_tree(getattr(algos[0], k)), "cpu"))
+    batch = {OBS: rng.normal(size=(n, 3)).astype(np.float32),
+             ACTIONS: rng.uniform(-2, 2, size=(n, 1)).astype(np.float32),
+             REWARDS: rng.normal(size=n).astype(np.float32),
+             NEXT_OBS: rng.normal(size=(n, 3)).astype(np.float32),
+             DONES: np.zeros(n, np.float32)}
+    eps = [rng.normal(size=(n, 1)).astype(np.float32) for _ in range(2)]
+    metrics = [a._update(on(a._dev, batch),
+                         *(torch.from_numpy(e).to(a._dev) for e in eps))
+               for a in algos]
+    diff = max(_tree_diff(getattr(algos[0], k), getattr(algos[1], k))
+               for k in ("pi_params", "q_params", "q_target", "log_alpha"))
+    out["sac"] = _host_ms(torch, lambda: algos[0]._update(
+        on(algos[0]._dev, batch),
+        *(torch.from_numpy(e).to(algos[0]._dev) for e in eps)))
+    log(f"SAC update ({n} rows) on {algos[0]._dev} vs cpu: critic_loss "
+        f"{float(metrics[0]['critic_loss'])} vs "
+        f"{float(metrics[1]['critic_loss'])}, max |param diff| (pi, q, "
+        f"target, log_alpha) {diff} (<= 1e-4); {out['sac']} ms per update "
+        f"on the card (host clock, 20 updates)")
+    check(diff <= 1e-4, "SAC: the update on the card differs from the "
+          "CPU's")
+    for a in algos:
+        a.stop()
+
+    # CQL and BC on a logged batch.
+    algos = pair(CQLConfig().offline_data(input_path=data_path))
+    algos[1].params = to_device_tree(to_numpy_tree(algos[0].params), "cpu")
+    algos[1].target_params = to_device_tree(
+        to_numpy_tree(algos[0].target_params), "cpu")
+    batch = algos[0].reader.next()
+    for a in algos:
+        a._update(on(a._dev, batch))
+    diff = _tree_diff(algos[0].params, algos[1].params)
+    out["cql"] = _host_ms(torch, lambda: algos[0]._update(
+        on(algos[0]._dev, batch)))
+    log(f"CQL update ({len(batch)} rows) on {algos[0]._dev} vs cpu: max "
+        f"|param diff| {diff} (<= 1e-4); {out['cql']} ms per update on the "
+        f"card (host clock, 20 updates)")
+    check(diff <= 1e-4, "CQL: the update on the card differs from the "
+          "CPU's")
+    algos = pair(BCConfig().offline_data(input_path=data_path))
+    algos[1].learner.set_weights(algos[0].learner.get_weights())
+    for a in algos:
+        a.learner.update(batch)
+    diff = _tree_diff(algos[0].learner.params, algos[1].learner.params)
+    out["bc"] = _host_ms(torch, lambda: algos[0].learner.update(batch))
+    log(f"BC update ({len(batch)} rows) on {algos[0].learner.device} vs "
+        f"cpu: max |param diff| {diff} (<= 1e-4); {out['bc']} ms per "
+        f"update on the card (host clock, 20 updates)")
+    check(diff <= 1e-4, "BC: the update on the card differs from the CPU's")
+    return out
+
+
+def offpolicy_phase(torch, dev):
+    """Main path 12: rllib's off-policy, offline and multi-agent half and
+    tune on the card.  No TPU kernel lies on this path (the networks are
+    small MLPs whose products the reference leaves to XLA, plain
+    ``torch.matmul`` here), so the phase adds no launch count."""
+    import statistics
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib import (
+        BCConfig, CQLConfig, DQNConfig, PPO, PPOConfig, SACConfig)
+
+    card = None if dev.type == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=6)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = logged_batches(f"{tmp}/data.json")
+            update_ms = offpolicy_updates(torch, card, data)
+
+            # (d) BC and CQL from the logged data, learners on the card.
+            algo = (BCConfig().offline_data(input_path=data,
+                                            num_batches_per_step=12)
+                    .training(lr=1e-2).resources(learner_device=card)
+                    ).build()
+            bc = [algo.train()["bc_loss"] for _ in range(10)]
+            acts = algo.compute_actions(np.eye(4, dtype=np.float32))
+            algo.stop()
+            match = float((acts == np.arange(4)).mean())
+            log(f"BC from logged data (learner on {dev}): bc_loss {bc} (last "
+                f"< 0.9); compute_actions {acts.tolist()} match the cue on "
+                f"{match} of obs (>= 0.75)")
+            check(bc[-1] < 0.9, f"BC: bc_loss {bc[-1]}")
+            check(match >= 0.75, f"BC: actions {acts}")
+            algo = (CQLConfig().offline_data(input_path=data,
+                                             num_batches_per_step=12)
+                    .training(lr=1e-2, min_q_weight=1.0)
+                    .resources(learner_device=card)).build()
+            cql = [algo.train() for _ in range(12)]
+            acts = algo.compute_actions(np.eye(4, dtype=np.float32))
+            algo.stop()
+            log(f"CQL from logged data (learner on {dev}): total_loss "
+                f"{[r['total_loss'] for r in cql]}; compute_actions "
+                f"{acts.tolist()}")
+            check(all(math.isfinite(r[k]) for r in cql
+                      for k in ("total_loss", "td_loss", "cql_loss")),
+                  "CQL: a non-finite loss")
+
+        # (b) DQN on CartPole: the reference slow test's settings.
+        algo = (DQNConfig().environment(CartPole)
+                .rollouts(num_rollout_workers=2, num_envs_per_worker=2,
+                          rollout_fragment_length=64)
+                .training(lr=1e-3, num_steps_sampled_before_learning=500,
+                          epsilon_timesteps=4000,
+                          target_network_update_freq=500)
+                .resources(learner_device=card)).build()
+        best, rewards, losses, epsilons, train_ms = 0.0, [], [], [], []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            result = algo.train()
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+            rewards.append(result.get("episode_reward_mean", 0.0))
+            epsilons.append(result["epsilon"])
+            if "loss" in result:
+                losses.append(result["loss"])
+            best = max(best, rewards[-1])
+            if best >= 100.0:
+                break
+        syncs = algo.target_syncs
+        algo.stop()
+        log(f"DQN on CartPole (numpy CartPole-v1), learner on {dev}, 2 CPU "
+            f"rollout workers x 2 envs: episode_reward_mean {rewards} (best "
+            f"{best}, >= 100, at train() {len(rewards)}); epsilon "
+            f"{epsilons}; losses {losses}; target syncs {syncs}; ms per "
+            f"train() {train_ms} (median {statistics.median(train_ms)})")
+        check(best >= 100.0, f"DQN did not learn CartPole: best {best}")
+        check(losses and all(math.isfinite(v) for v in losses),
+              "DQN: no loss, or a non-finite one")
+        check(epsilons[-1] < epsilons[0], "DQN: epsilon did not fall")
+        check(syncs >= 1, "DQN: the target network was never synced")
+
+        # (c) Two-policy PPO on TwoAgentMatch, learners on the card.
+        algo = (PPOConfig().environment(TwoAgentMatch)
+                .rollouts(num_rollout_workers=2, rollout_fragment_length=128)
+                .training(lr=3e-3, num_sgd_iter=4, sgd_minibatch_size=64)
+                .multi_agent(policies={"p0": None, "p1": None},
+                             policy_mapping_fn=lambda aid: "p" + aid[-1])
+                .resources(learner_device=card)).build()
+        devices = {pid: str(lr.device) for pid, lr in algo.learners.items()}
+        rewards, train_ms = [], []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            last = algo.train()
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+            rewards.append(last.get("episode_reward_mean"))
+        algo.stop()
+        log(f"two-policy PPO on TwoAgentMatch, learners on {devices}: "
+            f"episode_reward_mean {rewards} (last > 9.0); agent steps "
+            f"{last['num_agent_steps_sampled']}, env steps "
+            f"{last['num_env_steps_sampled']}; ms per train() {train_ms} "
+            f"(median {statistics.median(train_ms)})")
+        check(all(d.startswith(dev.type) for d in devices.values()),
+              "two-policy PPO: a learner is not on the card")
+        check((rewards[-1] or 0.0) > 9.0, f"two-policy PPO: {rewards[-1]}")
+        check(last["num_agent_steps_sampled"]
+              == 2 * last["num_env_steps_sampled"],
+              "two-policy PPO: agent steps are not twice the env steps")
+
+        # (e) SAC on Pendulum, learner on the card.
+        algo = (SACConfig().environment(Pendulum)
+                .rollouts(num_rollout_workers=1, rollout_fragment_length=200)
+                .training(num_steps_sampled_before_learning=400,
+                          warmup_uniform_steps=400)
+                .resources(learner_device=card)).build()
+        results, train_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+        algo.stop()
+        learned = [r for r in results if "critic_loss" in r]
+        log(f"SAC on Pendulum (numpy Pendulum-v1), learner on {dev}: "
+            f"{len(learned)} train() calls past warm-up; critic_loss "
+            f"{[r['critic_loss'] for r in learned]}; actor_loss "
+            f"{[r['actor_loss'] for r in learned]}; alpha "
+            f"{[r['alpha'] for r in learned]}; ms per train() {train_ms}")
+        check(len(learned) >= 3, "SAC: fewer than 3 updates past warm-up")
+        check(all(math.isfinite(r[k]) for r in learned
+                  for k in ("critic_loss", "actor_loss", "alpha")),
+              "SAC: a non-finite loss")
+        check(learned[-1]["alpha"] != 1.0, "SAC: alpha did not move")
+
+        # (f) Tune: PPO trials granted the card, one at a time.
+        class DevicePPO(PPO):
+            def step(self):
+                return dict(super().step(),
+                            learner_device=self.learner_group.device())
+
+        t0 = time.perf_counter()
+        grid = tune.run(
+            DevicePPO,
+            config={"env_maker": CartPole, "num_rollout_workers": 1,
+                    "rollout_fragment_length": 64, "learner_device": card,
+                    "lr": tune.grid_search([1e-3, 3e-3])},
+            stop={"training_iteration": 2}, metric="num_env_steps_sampled",
+            mode="max", max_concurrent_trials=1,
+            resources_per_trial={"CPU": 1, "TPU": 1})
+        tune_s = time.perf_counter() - t0
+        trial_devs = [t.last_result.get("learner_device")
+                      for t in grid.trials]
+        log(f"tune.run(PPO) over a 2-point lr grid, 1 card a trial: "
+            f"{len(grid)} trials, {grid.num_errors} errors, learner devices "
+            f"{trial_devs}, iterations "
+            f"{[t.last_result.get('training_iteration') for t in grid.trials]}"
+            f"; wall {tune_s} s")
+        check(len(grid) == 2 and grid.num_errors == 0,
+              f"tune: {len(grid)} trials, {grid.num_errors} errors")
+        check(all(d and d.startswith(dev.type) for d in trial_devs),
+              f"tune: trial learners on {trial_devs}")
+    finally:
+        ray_tpu_torch.shutdown()
+    log(f"phase 17 took {time.perf_counter() - t_phase} s; ms per update "
+        f"on the card {update_ms}")
+
+
 def _np_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
@@ -2239,6 +2671,7 @@ def main():
         k["launches_pipeline_actors_step"] = n
     torch.cuda.empty_cache()
     rllib_phase(torch, dev)
+    offpolicy_phase(torch, dev)
     k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
               **moe["step_profile"][0]["flash_fwd_kernel"],
               launches_moe_forward=moe["forward"],

@@ -1,24 +1,21 @@
-"""ray_tpu_torch.rllib — the RL training library's on-policy stack
-(counterpart: ``ray_tpu.rllib``).
+"""ray_tpu_torch.rllib — the RL training library (counterpart:
+``ray_tpu.rllib``).
 
 The new Learner stack of the reference (``rllib/core/learner``): CPU
-rollout-worker actors (no card) feed a Learner whose update runs on the
+rollout-worker actors (no card) feed learners whose updates run on the
 card — in the driver, or in an actor granted the card
 (``resources(remote_learner=True, learner_num_tpus=1)``).  Algorithms:
-PPO (sync on-policy), IMPALA (async, V-trace, the pinned-memory
-host->device learner queue) and APPO (IMPALA's pipeline with PPO's
-clipped surrogate against a target network).
-
-Not ported yet (ROADMAP.md Queue 1, item 7): DQN, SAC, the replay
-buffers, offline RL (BC, MARWIL, CQL, the JSON reader/writer and the
-importance-sampling estimators) and multi-agent (``MultiAgentEnv`` and
-its workers, and PPO's multi-agent branch).
+PPO (sync on-policy, single- and multi-agent), IMPALA (async, V-trace,
+the pinned-memory host->device learner queue), APPO (IMPALA's pipeline
+with PPO's clipped surrogate against a target network), DQN and SAC
+(off-policy, replay actors), and BC, MARWIL and CQL (offline, from the
+JSON reader), with the IS/WIS off-policy estimators.
 """
 
 import importlib as _importlib
 
 # name -> submodule.  Loaded on first use: a CPU worker that unpickles a
-# SampleBatch or an env imports no torch.
+# SampleBatch or an env (a MultiAgentEnv too) imports no torch.
 _NAMES = {
     "SampleBatch": "sample_batch", "concat_batches": "sample_batch",
     "ActorCriticMLP": "models", "RolloutWorker": "rollout_worker",
@@ -26,7 +23,18 @@ _NAMES = {
     "LearnerGroup": "learner", "Algorithm": "algorithm",
     "AlgorithmConfig": "algorithm", "PPO": "ppo", "PPOConfig": "ppo",
     "Impala": "impala", "ImpalaConfig": "impala", "APPO": "appo",
-    "APPOConfig": "appo", "VectorEnv": "env",
+    "APPOConfig": "appo", "VectorEnv": "env", "DQN": "dqn",
+    "DQNConfig": "dqn", "SAC": "sac", "SACConfig": "sac",
+    "ReplayBuffer": "replay_buffers",
+    "PrioritizedReplayBuffer": "replay_buffers",
+    "ReplayActor": "replay_buffers", "MultiAgentEnv": "multi_agent",
+    "MultiAgentBatch": "multi_agent",
+    "MultiAgentRolloutWorker": "multi_agent",
+    "MultiAgentWorkerSet": "multi_agent", "BC": "offline",
+    "BCConfig": "offline", "MARWIL": "offline", "MARWILConfig": "offline",
+    "CQL": "offline", "CQLConfig": "offline", "JsonReader": "offline",
+    "JsonWriter": "offline", "ImportanceSampling": "offline",
+    "WeightedImportanceSampling": "offline",
 }
 
 

@@ -28,7 +28,22 @@ from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.train.core import adam, global_norm
 from ray_tpu_torch.train.pipeline_actors import (
     to_device_tree, to_numpy_tree)
-from ray_tpu_torch.train.trees import tree_leaves, tree_unflatten
+from ray_tpu_torch.train.trees import tree_leaves, tree_map, tree_unflatten
+
+
+def grad_step(params, opt_state, optimizer, loss_fn: Callable):
+    """One optimizer step on ``params`` (and ``opt_state``) in place:
+    ``loss_fn(live)`` gives ``(loss, aux)`` at a copy of ``params`` whose
+    leaves require grad (jax's ``value_and_grad(has_aux=True)`` then
+    optax's update).  Returns the loss and aux, detached."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(params, leaves))
+        # A leaf the loss does not use gets a zero grad, as under jax.grad.
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    optimizer.update_(tree_unflatten(params, grads), opt_state, params,
+                      global_norm(grads))
+    return loss.detach(), tree_map(lambda t: t.detach(), aux)
 
 
 class _DataParallel:
@@ -102,8 +117,11 @@ class Learner:
             else:
                 loss, metrics = self._loss_fn(trees[0], self.module,
                                               dev_batch)
+            # A leaf the loss does not use (BC's value head) gets a zero
+            # grad, as under jax.grad.
             per = torch.autograd.grad(loss, [p for r in replicas
-                                             for p in r])
+                                             for p in r],
+                                      materialize_grads=True)
         n = len(leaves)
         grads = list(per[:n])
         for i in range(1, len(replicas)):

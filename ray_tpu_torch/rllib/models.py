@@ -6,16 +6,38 @@ The params are the reference's tree, ``{"pi": [{"w", "b"}, ...], "vf":
 leaf by leaf (``train.pipeline_actors.to_device_tree``).  No ``nn.Module``: the
 learner differentiates ``apply`` with respect to the leaves, as the
 reference's JAX functions are differentiated.  The products are plain
-``torch.matmul``, as the reference leaves them to XLA.
+``torch.matmul``, as the reference leaves them to XLA.  torch is imported
+where weights are drawn, not at import: a CPU worker that unpickles a
+rollout worker or a multi-agent env needs none of it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
-import torch
+
+
+def mlp_init(generator: torch.Generator, sizes) -> List[Dict[str, Any]]:
+    """``[{"w", "b"}, ...]`` for ``sizes``: He-normal weights drawn from
+    ``generator`` in layer order, zero biases, f32 on its device."""
+    import torch
+
+    dev = generator.device
+    return [{"w": torch.randn(a, b, generator=generator, device=dev)
+             * math.sqrt(2.0 / a),
+             "b": torch.zeros(b, device=dev)}
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def mlp_apply(layers, x: torch.Tensor) -> torch.Tensor:
+    """The layers in order, tanh between them, none after the last."""
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"] + lyr["b"]
+        if i < len(layers) - 1:
+            x = x.tanh()
+    return x
 
 
 class ActorCriticMLP:
@@ -31,31 +53,16 @@ class ActorCriticMLP:
         """He-normal weights, zero biases, f32 on the generator's device
         (the reference's scheme; ``jax.random``'s numbers are not
         reproduced)."""
-        dev = generator.device
-
-        def mlp(sizes):
-            return [{"w": torch.randn(a, b, generator=generator,
-                                      device=dev) * math.sqrt(2.0 / a),
-                     "b": torch.zeros(b, device=dev)}
-                    for a, b in zip(sizes[:-1], sizes[1:])]
-
         pi_sizes = (self.obs_dim,) + self.hidden + (self.num_actions,)
         vf_sizes = (self.obs_dim,) + self.hidden + (1,)
-        return {"pi": mlp(pi_sizes), "vf": mlp(vf_sizes)}
-
-    @staticmethod
-    def _forward(layers, x):
-        for i, lyr in enumerate(layers):
-            x = x @ lyr["w"] + lyr["b"]
-            if i < len(layers) - 1:
-                x = torch.tanh(x)
-        return x
+        return {"pi": mlp_init(generator, pi_sizes),
+                "vf": mlp_init(generator, vf_sizes)}
 
     def apply(self, params, obs: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """obs (B, obs_dim) -> (logits (B, A), value (B,))."""
-        logits = self._forward(params["pi"], obs)
-        value = self._forward(params["vf"], obs)[..., 0]
+        logits = mlp_apply(params["pi"], obs)
+        value = mlp_apply(params["vf"], obs)[..., 0]
         return logits, value
 
 

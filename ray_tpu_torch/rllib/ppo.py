@@ -6,10 +6,8 @@ synchronous_parallel_sample from the worker fleet -> learner update ->
 weight sync (:447).  The loss is the clipped-surrogate + value + entropy
 objective of ``ppo_torch_policy.py``; SGD epochs and minibatching happen
 driver-side, each minibatch one learner update.
-
-Single-agent only: the multi-agent branch (``policies``) needs
-``multi_agent.py``, which is not ported yet (ROADMAP.md Queue 1, item 7),
-and raises ``NotImplementedError``.
+With ``policies`` set, each policy gets its own ``Learner`` and the
+rollouts are policy-mapped (``multi_agent.py``).
 """
 
 from __future__ import annotations
@@ -70,9 +68,8 @@ class PPO(Algorithm):
 
     def _setup(self, cfg: PPOConfig):
         if cfg.policies:
-            raise NotImplementedError(
-                "multi-agent PPO needs rllib's multi_agent module, which "
-                "the port does not have yet (ROADMAP.md Queue 1, item 7)")
+            self._setup_multi_agent(cfg)
+            return
         env = cfg.env_maker()
         obs_dim = int(np.prod(env.observation_space.shape))
         num_actions = int(env.action_space.n)
@@ -101,8 +98,81 @@ class PPO(Algorithm):
         self.workers.sync_weights(self.learner_group.get_weights())
         self._rng = np.random.default_rng(cfg.seed)
 
+    def _setup_multi_agent(self, cfg: PPOConfig):
+        """Per-policy Learners + policy-mapped rollouts (reference:
+        multi-agent PPO through the Learner stack — one LearnerGroup per
+        policy in learner_group.py; here one Learner per policy, seeded
+        ``seed + i``, data-parallel over ``num_learners`` replicas)."""
+        from ray_tpu_torch.rllib.multi_agent import MultiAgentWorkerSet
+
+        if cfg.remote_learner:
+            raise NotImplementedError(
+                "remote_learner is not supported in multi-agent mode; "
+                "the per-policy learners run in this process (use "
+                "num_learners to make their updates data-parallel)")
+        env = cfg.env_maker()
+        default_model = None
+        if any(mc is None for mc in cfg.policies.values()):
+            obs_dim = int(np.prod(env.observation_space.shape))
+            num_actions = int(env.action_space.n)
+            default_model = {
+                "obs_dim": obs_dim, "num_actions": num_actions,
+                "hidden": tuple(cfg.model.get("hidden", (64, 64)))}
+        env.close() if hasattr(env, "close") else None
+        model_configs = {pid: (dict(mc) if mc is not None
+                               else dict(default_model))
+                         for pid, mc in cfg.policies.items()}
+        mapping = cfg.policy_mapping_fn or (lambda aid: next(
+            iter(model_configs)))
+
+        def loss(params, mod, batch):
+            return ppo_loss(params, mod, batch, clip=cfg.clip_param,
+                            vf_coef=cfg.vf_loss_coeff,
+                            ent_coef=cfg.entropy_coeff)
+
+        self.learners: Dict[str, Learner] = {}
+        for i, (pid, mc) in enumerate(model_configs.items()):
+            lr = Learner(ActorCriticMLP(**mc), loss,
+                         optimizer=adam(cfg.lr, grad_clip=cfg.grad_clip),
+                         seed=cfg.seed + i, device=cfg.learner_device)
+            if cfg.num_learners and cfg.num_learners > 1:
+                lr.set_replicas(cfg.num_learners)
+            self.learners[pid] = lr
+        self.ma_workers = MultiAgentWorkerSet(
+            cfg.env_maker, model_configs, mapping,
+            cfg.num_rollout_workers, gamma=cfg.gamma, lam=cfg.lam)
+        self.ma_workers.sync_weights(
+            {pid: lr.get_weights() for pid, lr in self.learners.items()})
+        self._rng = np.random.default_rng(cfg.seed)
+
+    def _training_step_multi_agent(self) -> Dict[str, Any]:
+        cfg: PPOConfig = self.algo_config
+        ma_batch = self.ma_workers.sample_sync(cfg.rollout_fragment_length)
+        metrics: Dict[str, Any] = {}
+        for pid, batch in ma_batch.items():
+            if not len(batch):
+                continue
+            pm: Dict[str, Any] = {}  # num_sgd_iter=0 must not NameError
+            for _ in range(cfg.num_sgd_iter):
+                shuffled = batch.shuffle(self._rng)
+                mb_size = min(cfg.sgd_minibatch_size, len(shuffled))
+                for mb in shuffled.minibatches(mb_size):
+                    pm = self.learners[pid].update(mb)
+            metrics.update({f"{pid}/{k}": v for k, v in pm.items()})
+        self.ma_workers.sync_weights(
+            {pid: lr.get_weights() for pid, lr in self.learners.items()})
+        returns = self.ma_workers.episode_returns()
+        if returns:
+            metrics["episode_reward_mean"] = float(np.mean(returns))
+            metrics["episodes_this_iter"] = len(returns)
+        metrics["num_env_steps_sampled"] = ma_batch.env_steps()
+        metrics["num_agent_steps_sampled"] = ma_batch.agent_steps()
+        return metrics
+
     def training_step(self) -> Dict[str, Any]:
         cfg: PPOConfig = self.algo_config
+        if cfg.policies:
+            return self._training_step_multi_agent()
         batch = self.workers.sample_sync(cfg.rollout_fragment_length)
         metrics: Dict[str, Any] = {}
         if len(batch) == 0:
@@ -123,11 +193,23 @@ class PPO(Algorithm):
         return metrics
 
     def save_checkpoint(self):
+        if self.algo_config.policies:
+            return {pid: lr.state() for pid, lr in self.learners.items()}
         return self.learner_group.state()
 
     def load_checkpoint(self, state):
+        if self.algo_config.policies:
+            for pid, s in state.items():
+                self.learners[pid].load_state(s)
+            self.ma_workers.sync_weights(
+                {pid: lr.get_weights()
+                 for pid, lr in self.learners.items()})
+            return
         self.learner_group.load_state(state)
         self.workers.sync_weights(self.learner_group.get_weights())
 
     def cleanup(self):
-        self.workers.stop()
+        if self.algo_config.policies:
+            self.ma_workers.stop()
+        else:
+            self.workers.stop()

@@ -539,12 +539,18 @@ class ServeController:
                     ray.get(r["actor"].health_check.remote(), timeout=5)
                     r["ready"] = True
                     alive.append(r)
+                    continue
                 except exc.GetTimeoutError:
                     if not r.get("ready", True) and time.monotonic() - \
                             r["spawned"] < self.START_TIMEOUT_S:
                         alive.append(r)  # still starting
+                        continue
                 except Exception:
-                    pass  # dead or unhealthy: dropped, replaced below
+                    pass
+                # Dead, hung or unhealthy: dropped and replaced below,
+                # and killed after the drain, so that what it holds (a
+                # granted card too) returns to the pool.
+                self._retire(r)
             if d.get("role") and d.get("autoscaling_config"):
                 # Role pools autoscale on batcher saturation too: feed
                 # this tick's sample into the pool metric window.

@@ -463,16 +463,6 @@ def test_ppo_learns_cartpole_and_checkpoints(runtime):
     algo2.stop()
 
 
-def test_ppo_multi_agent_is_not_ported(runtime):
-    from ray_tpu_torch.rllib import PPOConfig
-
-    config = (PPOConfig().environment(cartpole)
-              .multi_agent(policies={"p0": None})
-              .resources(learner_device="cpu"))
-    with pytest.raises(NotImplementedError, match="multi_agent"):
-        config.build()
-
-
 def test_impala_distributed_and_appo_train(runtime):
     """IMPALA's distributed path (2 aggregators, the H2D queue) and APPO
     each take 3 ``train()`` calls: finite losses, steps sampled, the

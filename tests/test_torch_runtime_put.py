@@ -260,7 +260,11 @@ def test_reservation_aborted_when_pusher_dies(shm_store):
     finally:
         conn.close()  # pusher "dies" between reserve and commit
     deadline = time.monotonic() + 10
-    while os.path.exists(path) and time.monotonic() < deadline:
+    # The server unlinks the file, then rolls the accounting back: wait
+    # for both (checked one after the other, the second could be caught
+    # between the two steps).
+    while (os.path.exists(path) or shm_store._used != used0) and \
+            time.monotonic() < deadline:
         time.sleep(0.02)
     assert not os.path.exists(path), "reservation segment leaked"
     assert shm_store._used == used0, "store accounting not restored"

@@ -113,6 +113,65 @@ class _SlowStart:
         return os.getpid()
 
 
+class _FallsSick:
+    """A replica that answers, then fails its health check."""
+
+    def __init__(self):
+        self._sick = False
+
+    def __call__(self, x):
+        return x + 1
+
+    def pid(self):
+        return os.getpid()
+
+    def fall_sick(self):
+        self._sick = True
+
+    def check_health(self):
+        if self._sick:
+            raise RuntimeError("unhealthy")
+
+
+def _process_gone(pid):
+    """No such process, or one that has exited and awaits its parent."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except FileNotFoundError:
+        return True
+
+
+def test_dropped_granted_replica_is_killed_and_its_card_released(
+        monkeypatch):
+    """A replica that has answered and then fails its health check is
+    dropped, killed, and its card granted to its replacement (which could
+    never be placed while the dropped replica held the only card)."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import serve
+
+    monkeypatch.setenv("RAY_TPU_FORCE_NUM_TPUS", "1")
+    ray.init(num_cpus=2)
+    try:
+        dep = serve.deployment(_FallsSick, name="falls-sick", num_tpus=1,
+                               max_concurrency=4)
+        handle = serve.run(dep.bind(), name="falls-sick")
+        assert ray.get(handle.remote(1), timeout=60) == 2
+        pid = ray.get(handle.method("pid").remote(), timeout=60)
+        ray.get(handle.method("fall_sick").remote(), timeout=60)
+        new_pid = ray.get(handle.method("pid").remote(), timeout=60)
+        deadline = time.monotonic() + 30
+        while new_pid == pid and time.monotonic() < deadline:
+            time.sleep(0.5)
+            new_pid = ray.get(handle.method("pid").remote(), timeout=60)
+        assert new_pid != pid
+        assert _process_gone(pid)
+        assert ray.get(handle.remote(2), timeout=60) == 3
+    finally:
+        serve.shutdown()
+        ray.shutdown()
+
+
 def test_slow_starting_granted_replica_is_kept(monkeypatch):
     import ray_tpu_torch as ray
     from ray_tpu_torch import serve
