@@ -229,10 +229,29 @@ Phases, each fatal on failure:
    process showing 2 alive nodes and the node's ``TPU`` 1/1 and no other
    card, ``scripts down``, and the head's and the agent's processes
    gone.
+20. Main path 15, the sharded decoder, at vocab 32000 (the flagship's)
+   and embed 256 (the widest row K4 takes), integer f32 weights, paged
+   KV, prefix caching, speculative_k=3.  K4 at that shape (B=8, h=1,
+   block 8, window 1) bitwise its plain version, with its time and
+   bound.  A device list naming a card that is not there raises.  (a)
+   In this process: the projection in 4 column blocks on the one card
+   (``device=["cuda:0"] * 4``) and a 1-shard decoder on the same
+   weights, each warmed by one request on another prompt, then phase
+   7's 16 requests (the first alone, then 15 threads): every chain of
+   both bitwise ``reference_decode``, K4 launched, prefix hits; the
+   wall, steps and ms per step of each, and the device time of the 4
+   block products and their merge against the one whole product, at
+   the verify shape (8 x 4 rows).  (b) Through the runtime:
+   ``serve.run`` of phase 9's probed decoder with
+   ``ray_actor_options={"num_tpus": 1}``, ``device=None`` and the same
+   weights: the granted worker resolves one shard per visible card (1
+   here), the 16 requests bitwise, K4 launched in the replica's
+   process, ``serve.serving_stats`` with mode ``continuous+paged`` and
+   16 retired.
 
 Launch counts are set to 0 just before each main path and read just after
-it (in paths 4-6, 13 and 14, in the replica's, the trainer's or the job
-task's process).
+it (in paths 4-6, 13, 14 and 15 b, in the replica's, the trainer's or
+the job task's process).
 Prints the kernels line, then as its last line ``{"ok": true, "device":
 {...}}``.
 Exits non-zero, with no result, when there is no card or the port is not
@@ -278,7 +297,8 @@ def cuda_ms(fn, iters):
 
 def _profile(torch, run, reps):
     """Run ``run`` ``reps`` times under torch.profiler: ({CUDA kernel or
-    copy name: device us per run}, host wall us per run)."""
+    copy name: device us per run}, host wall us per run, {name: records
+    of it in the ``reps`` runs})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -291,27 +311,41 @@ def _profile(torch, run, reps):
             run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    busy = {e.key: e.self_device_time_total / reps
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-    return busy, wall_us
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / reps for e in events}
+    return busy, wall_us, {e.key: e.count for e in events}
 
 
-def device_ms(torch, run, reps, kernel=None, tries=5, floor_ms=0.0):
-    """Device time per call: the profiler's kernel times (only kernels
-    whose name holds ``kernel`` when given).  A profiled run now and then
-    records no kernel at all, or only part of the call's kernels (logged);
-    raises when ``tries`` runs in a row record no such kernel, or less
-    than ``floor_ms``, the least time the card could take for the call's
-    work: a host-clock time or a partial record is no device time."""
+def device_ms(torch, run, reps, kernel=None, tries=5, floor_ms=0.0,
+              top=0):
+    """Device time per call: the profiler's kernel times.  With
+    ``kernel`` (a kernel launched once a call), the mean of the records
+    of the kernels whose name holds it: the profiler now and then keeps
+    only some of a run's records (19 of 20, 7 of 50), and a mean over
+    those kept is still a call's time.  Without it, every kernel's time
+    over ``reps``.  A profiled run now and then records no kernel at all,
+    or less than the call's whole time (logged); raises when ``tries``
+    runs in a row record no such kernel, or less than ``floor_ms``, the
+    least time the card could take for the call's work: a host-clock
+    time or a partial record is no device time.  ``top`` logs that many
+    of the kernels taking it."""
     for i in range(tries):
-        busy, _ = _profile(torch, run, reps)
-        ms = sum(t for k, t in busy.items()
-                 if kernel is None or kernel in k) / 1e3
+        busy, _, counts = _profile(torch, run, reps)
+        if kernel is None:
+            ms = sum(busy.values()) / 1e3
+        else:
+            n = sum(c for k, c in counts.items() if kernel in k)
+            ms = sum(t for k, t in busy.items()
+                     if kernel in k) * reps / max(n, 1) / 1e3
         if ms and ms >= floor_ms:
+            for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:top]:
+                log(f"  {us} us ({counts[name]} records in {reps} runs)  "
+                    f"{name[:100]}")
             return ms
         log(f"profiled run {i + 1} of {tries} recorded {ms} ms of device "
             f"time for {kernel or 'the call'} (bound {floor_ms} ms; "
-            f"{len(busy)} device records: {sorted(busy)})")
+            f"{len(busy)} device records: {sorted(counts.items())})")
     raise RuntimeError(f"the profiler recorded no whole device time for "
                        f"{kernel or 'the call'}")
 
@@ -579,20 +613,23 @@ def k4_work(q, cl_np, window, bs):
     return nbytes, 4 * h * d * rows
 
 
-def k4_phase(torch, dev):
+def k4_plain(q, kc, vc, bt, cl, window):
+    """K4's plain PyTorch version, pre-scaled as the wrapper scales."""
     from ray_tpu_torch.ops import attention
-    from ray_tpu_torch.ops.paged_attention import (
-        _paged_attention_plain, paged_attention)
+    from ray_tpu_torch.ops.paged_attention import _paged_attention_plain
 
-    def plain(q, kc, vc, bt, cl, window):
-        qs = attention._prescale(q, q.shape[-1] ** -0.5)
-        return _paged_attention_plain(qs, kc, vc, bt, cl, window)
+    qs = attention._prescale(q, q.shape[-1] ** -0.5)
+    return _paged_attention_plain(qs, kc, vc, bt, cl, window)
+
+
+def k4_phase(torch, dev):
+    from ray_tpu_torch.ops.paged_attention import paged_attention
 
     # The serving shape (what the decoder's _read_last launches).
     q, kc, vc, bt, cl, cl_np = _paged_inputs(torch, dev, 0, 8, 1, 32, 8, 40,
                                              torch.float32)
     out = paged_attention(q, kc, vc, bt, cl, window=1)
-    ref = plain(q, kc, vc, bt, cl, 1)
+    ref = k4_plain(q, kc, vc, bt, cl, 1)
     torch.cuda.synchronize()
     exact = torch.equal(out, ref)
     err = float((out - ref).abs().max())
@@ -608,7 +645,7 @@ def k4_phase(torch, dev):
                    floor_ms=b_ms)
     call_ms = cuda_ms(run, 200)
     wrapper_host_ms = host_ms(torch, run)
-    plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 1), 20,
+    plain_ms = device_ms(torch, lambda: k4_plain(q, kc, vc, bt, cl, 1), 20,
                          floor_ms=b_ms)
     log(f"K4 serving shape (device time per call): kernel {ms} ms, plain "
         f"{plain_ms} ms, bound {b_ms} ms ({b_by}: {nbytes} B, {flops} "
@@ -628,7 +665,7 @@ def k4_phase(torch, dev):
                                              1024, torch.bfloat16)
     for window in (0, 64):
         out = paged_attention(q, kc, vc, bt, cl, window=window)
-        ref = plain(q, kc, vc, bt, cl, window).float()
+        ref = k4_plain(q, kc, vc, bt, cl, window).float()
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         err = float(diff.max())
@@ -638,8 +675,8 @@ def k4_phase(torch, dev):
         ms = device_ms(torch, lambda: paged_attention(
             q, kc, vc, bt, cl, window=window), 20, kernel="paged_decode",
             floor_ms=b_ms)
-        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl,
-                                                  window), 5, floor_ms=b_ms)
+        plain_ms = device_ms(torch, lambda: k4_plain(
+            q, kc, vc, bt, cl, window), 5, floor_ms=b_ms)
         log(f"K4 general shape (bf16, B=8, h=6, d=128, bs=16, ctx "
             f"{int(cl_np.min())}-{int(cl_np.max())}, window={window}): "
             f"max_abs_err={err}, {n_out} elements outside 1e-3 + "
@@ -656,7 +693,7 @@ def k4_phase(torch, dev):
         q, kc, vc, bt, cl = _paged_long_inputs(torch, dev, 3 + B, B)
         cl_np = cl.cpu().numpy()
         out = paged_attention(q, kc, vc, bt, cl)
-        ref = plain(q, kc, vc, bt, cl, 0).float()
+        ref = k4_plain(q, kc, vc, bt, cl, 0).float()
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         err = float(diff.max())
@@ -666,7 +703,7 @@ def k4_phase(torch, dev):
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
         ms = device_ms(torch, lambda: paged_attention(q, kc, vc, bt, cl), 20,
                        kernel="paged_decode", floor_ms=b_ms)
-        plain_ms = device_ms(torch, lambda: plain(q, kc, vc, bt, cl, 0), 3,
+        plain_ms = device_ms(torch, lambda: k4_plain(q, kc, vc, bt, cl, 0), 3,
                              floor_ms=b_ms)
         log(f"K4 {what} shape (bf16, B={B}, h=32, d=128, bs=16, ctx 2048, "
             f"window=0): max_abs_err={err}, {n_out} elements outside 1e-3 + "
@@ -679,7 +716,7 @@ def k4_phase(torch, dev):
                        "bound_ms_" + what: b_ms, "bound_by_" + what: b_by})
         if what == "long_batch":
             out = paged_attention(q, kc, vc, bt, cl, window=1)
-            ref = plain(q, kc, vc, bt, cl, 1)
+            ref = k4_plain(q, kc, vc, bt, cl, 1)
             rows = vc[bt[:, -1].long(), 15]
             torch.cuda.synchronize()
             exact = torch.equal(out, ref) and torch.equal(out, rows)
@@ -787,7 +824,7 @@ def profile_run(torch, run, what, reps=3, top=10):
     """Device busy time per ``what`` (a forward, a step) and the kernels
     that take it, under torch.profiler; the rest of the wall time is the
     device's idle share (the profiler's own host cost included)."""
-    busy, wall_us = _profile(torch, run, reps)
+    busy, wall_us, _ = _profile(torch, run, reps)
     total = sum(busy.values())
     check(total > 0, f"{what} profile: the profiler recorded no device time")
     log(f"{what} profile (per {what}, {reps} runs): device busy "
@@ -938,11 +975,15 @@ def probed_decoder():
 
     class ProbedDecoder(MeshShardedDecoder):
         def probe(self, reset=False):
+            import torch
+
             from ray_tpu_torch.ops import _build
 
             out = {"pid": os.getpid(),
                    "cvd": os.environ.get("CUDA_VISIBLE_DEVICES"),
                    "device": self._kv_cache.device.type,
+                   "shards": len(self._devices),
+                   "cards": torch.cuda.device_count(),
                    "launches": _build.launches["paged_decode"]}
             if reset:
                 _build.reset_launches()
@@ -3324,6 +3365,231 @@ def autoscaled_phase(torch, smi, loss0_phase8, trainer_step_ms):
     return launches, job["k1"]
 
 
+SHARDED_EMBED = 256      # phase 20: the widest row K4 takes (head_dim <= 256)
+SHARDED_VOCAB = 32000    # the flagship's vocab
+SHARDS = 4               # column blocks of the projection on the one card
+
+
+def sharded_requests():
+    """Phase 7's 16 requests: one shared 20-token prompt, each request its
+    own two last tokens."""
+    system = list(range(20))
+    return [{"prompt": system + [32 + i % 32, i], "tokens": 3 + i % 10}
+            for i in range(16)]
+
+
+def serve_in_process(torch, dec, reqs):
+    """``reqs`` through ``dec``, K4's launches counted around them alone:
+    the first request alone (it registers the shared prompt, so that the
+    prefix cache is hit whatever the threads' timing), then the others
+    from one thread each.  Returns (chains, K4 launches, wall s, batcher
+    stats, the steps these requests took)."""
+    from ray_tpu_torch.ops import _build
+
+    out = [None] * len(reqs)
+    batcher = dec.__dict__["__serve_batcher__decode"]
+    steps0 = batcher.stats()["steps"]
+
+    def client(i):
+        out[i] = dec(reqs[i])
+
+    torch.cuda.synchronize()
+    _build.reset_launches()                       # the main path starts
+    t0 = time.perf_counter()
+    client(0)
+    run_threads(lambda i: client(i + 1), len(reqs) - 1)
+    wall = time.perf_counter() - t0
+    launches = _build.launches["paged_decode"]    # the main path ends
+    stats = batcher.stats()
+    return out, launches, wall, stats, stats["steps"] - steps0
+
+
+def sharded_kernel_at_d256(torch, dev):
+    """K4 at phase 20's shape (f32, B=8, h=1, d=256, block 8, window=1):
+    bitwise its plain version, its device time, the plain version's and
+    the bound from ``k4_work``."""
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    q, kc, vc, bt, cl, cl_np = _paged_inputs(
+        torch, dev, 7, 8, 1, SHARDED_EMBED, 8, 40, torch.float32)
+
+    def plain():
+        return k4_plain(q, kc, vc, bt, cl, 1)
+
+    def run():
+        return paged_attention(q, kc, vc, bt, cl, window=1)
+
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    exact = torch.equal(out, ref)
+    err = float((out - ref).abs().max())
+    nbytes, flops = k4_work(q, cl_np, 1, 8)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    ms = device_ms(torch, run, 50, kernel="paged_decode_kernel",
+                   floor_ms=b_ms)
+    call_ms = cuda_ms(run, 200)
+    plain_ms = device_ms(torch, plain, 20, floor_ms=b_ms)
+    log(f"K4 at phase 20's shape (f32, B=8, h=1, d={SHARDED_EMBED}, bs=8, "
+        f"window=1): exact={exact} max_abs_err={err}; kernel {ms} ms, "
+        f"wrapper call {call_ms} ms (CUDA events, back to back), plain "
+        f"{plain_ms} ms, bound {b_ms} ms ({b_by}: {nbytes} B, {flops} "
+        f"flop)")
+    check(exact, "K4 is not exact at window=1 at d=256")
+    return {"max_abs_err_d256": err, "ms_d256": ms, "call_ms_d256": call_ms,
+            "plain_ms_d256": plain_ms, "bound_ms_d256": b_ms,
+            "bound_by_d256": b_by}
+
+
+def sharded_decoder_phase(torch, smi):
+    """Phase 20, the sharded decoder.  (a) In this process: the decoder at
+    vocab 32000, embed 256 with its projection in 4 column blocks on the
+    one card, phase 7's 16 requests bitwise ``reference_decode`` and a
+    1-shard decoder's chains on the same weights.  (b) Through the
+    runtime: a replica granted the card with ``device=None`` resolves one
+    shard per visible card and serves the same chains.  Returns K4's
+    launches in (a) and (b) and K4 at d=256."""
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    k4 = sharded_kernel_at_d256(torch, dev)
+    missing = f"cuda:{torch.cuda.device_count()}"
+    try:
+        MeshShardedDecoder(device=["cuda:0", missing])
+    except RuntimeError as e:
+        log(f"a device list naming {missing} raises: {e}")
+    else:
+        raise AssertionError(f"a device list naming {missing} was taken")
+    GLOBAL_CONFIG.paged_kv = True
+    GLOBAL_CONFIG.prefix_caching = True
+    GLOBAL_CONFIG.speculative_k = 3
+    kw = dict(embed=SHARDED_EMBED, kv_blocks=128)
+    sharded = MeshShardedDecoder(vocab=SHARDED_VOCAB,
+                                 device=["cuda:0"] * SHARDS, **kw)
+    check(len(sharded._devices) == SHARDS and sharded._vocab == SHARDED_VOCAB
+          and all(w.device == dev and w.shape == (SHARDED_EMBED,
+                                                  SHARDED_VOCAB // SHARDS)
+                  for w in sharded._w),
+          f"the 4-shard decoder: {sharded._devices}, vocab {sharded._vocab}")
+    weights = {"w": sharded._w_host, "emb": sharded._emb_host,
+               "wd": sharded._wd_host}
+    whole = MeshShardedDecoder(weights=weights, device="cuda:0", **kw)
+    check(len(whole._devices) == 1, "the 1-shard decoder")
+    reqs = sharded_requests()
+    t0 = time.perf_counter()
+    want = [sharded.reference_decode(r["prompt"], r["tokens"]) for r in reqs]
+    ref_s = time.perf_counter() - t0
+    # One request on another prompt warms each decoder (the card's
+    # libraries load on the first call), so that neither timed run pays
+    # for the other.
+    for dec in (sharded, whole):
+        check(len(dec({"prompt": list(range(100, 120)), "tokens": 2})) == 2,
+              "warm-up request")
+    runs = {}
+    for what, dec in (("4-shard", sharded), ("1-shard", whole)):
+        out, launches, wall, st, steps = serve_in_process(torch, dec, reqs)
+        runs[what] = (launches, wall, steps)
+        log(f"phase 20 (a) {what} decoder (vocab {SHARDED_VOCAB}, embed "
+            f"{SHARDED_EMBED}, on {smi}): 16 requests, "
+            f"{sum(len(o) for o in out)} tokens, wall {wall} s, steps "
+            f"{steps}, {wall / steps * 1e3} ms per step, "
+            f"{sum(len(o) for o in out) / steps} tokens per step, "
+            f"prefix_hits "
+            f"{st['prefix_hits']}, spec accepted "
+            f"{st['spec_accepted']}/{st['spec_proposed']}, K4 launches "
+            f"{launches}")
+        for r, got, w in zip(reqs, out, want):
+            check(got == w, f"{what} chain differs from reference_decode "
+                  f"for {r}")
+        check(launches > 0, f"K4 never launched in the {what} decoder")
+        check(st["prefix_hits"] > 0, f"no prefix hits in the {what} decoder")
+    step_ms = {k: v[1] / v[2] * 1e3 for k, v in runs.items()}
+    log(f"phase 20 (a): every chain of both decoders bitwise "
+        f"reference_decode ({ref_s} s of host reference at vocab "
+        f"{SHARDED_VOCAB}); the 4-shard step takes "
+        f"{step_ms['4-shard'] - step_ms['1-shard']} ms more than the "
+        f"1-shard step ({step_ms['4-shard']} against {step_ms['1-shard']})")
+    # The projection alone, at the verify forward's shape (8 requests, k+1
+    # = 4 rows each): four block products and their merge against one.
+    x = torch.from_numpy(sharded._emb_host[np.arange(32).reshape(8, 4)]).to(
+        dev)
+    check(torch.equal(sharded._project(x), whole._project(x)),
+          "the 4-block projection picks other tokens than the whole one")
+    # Its bound: w and x read once and the int64 picks written once, or
+    # its f32 flop (TF32 is off).
+    p_ms, p_by = bound(4 * SHARDED_EMBED * SHARDED_VOCAB + 4 * x.numel()
+                       + 8 * 32, 0, F32_FLOPS, 2 * x.numel() * SHARDED_VOCAB)
+    proj = {}
+    for what, d in (("4-block", sharded), ("whole", whole)):
+        log(f"{what} projection, its kernels:")
+        proj[what] = device_ms(torch, lambda d=d: d._project(x), 20,
+                               floor_ms=p_ms, top=8)
+    log(f"phase 20 (a): device time of the projection at (8, 4, "
+        f"{SHARDED_EMBED}) x ({SHARDED_EMBED}, {SHARDED_VOCAB}), f32: 4 "
+        f"blocks and their merge {proj['4-block']} ms, one whole product "
+        f"{proj['whole']} ms, bound {p_ms} ms ({p_by})")
+    del sharded, whole
+    torch.cuda.empty_cache()
+
+    # (b) Through the runtime: device=None in a worker granted the card.
+    ProbedDecoder = probed_decoder()
+    card = first_visible_card()
+    ray_tpu_torch.init(num_cpus=4, _system_config={
+        "paged_kv": True, "prefix_caching": True, "speculative_k": 3})
+    try:
+        t0 = time.perf_counter()
+        dep = serve.deployment(ProbedDecoder, name="sharded",
+                               ray_actor_options={"num_tpus": 1},
+                               max_concurrency=16)
+        handle = serve.run(dep.bind(weights=weights, device=None, **kw),
+                           name="sharded")
+        before = ray_tpu_torch.get(handle.method("probe").remote(reset=True),
+                                   timeout=300)
+        deploy_s = time.perf_counter() - t0
+        out = [None] * len(reqs)
+
+        def client(i):
+            out[i] = ray_tpu_torch.get(handle.remote(reqs[i]), timeout=300)
+
+        t0 = time.perf_counter()                  # main path 20b starts
+        run_threads(client, len(reqs))
+        wall = time.perf_counter() - t0
+        after = ray_tpu_torch.get(handle.method("probe").remote(),
+                                  timeout=300)    # main path 20b ends
+        stats = serve.serving_stats("sharded")
+        for r, got, w in zip(reqs, out, want):
+            check(got == w, f"served sharded chain differs from "
+                  f"reference_decode for {r}")
+        log(f"phase 20 (b): replica pid {after['pid']} (driver "
+            f"{os.getpid()}), CUDA_VISIBLE_DEVICES={after['cvd']!r}, "
+            f"{after['shards']} shard(s) on {after['cards']} visible "
+            f"card(s), tensors on {after['device']}, K4 launches "
+            f"{after['launches']} (reset from {before['launches']}); "
+            f"serving_stats mode {stats.get('mode')}, retired "
+            f"{stats.get('retired')}, steps {stats.get('steps')}; deploy "
+            f"{deploy_s} s, 16 requests wall {wall} s; every chain bitwise "
+            f"reference_decode")
+        check(after["pid"] != os.getpid() and after["cvd"] == card
+              and after["device"] == "cuda",
+              f"the replica is not in a worker granted the card: {after}")
+        check(after["shards"] == after["cards"] == 1,
+              f"device=None in a worker granted one card: {after}")
+        check(after["launches"] > 0, "K4 never launched in the replica")
+        check(stats.get("mode") == "continuous+paged"
+              and stats.get("retired") == len(reqs),
+              f"serving_stats: {stats}")
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    log(f"phase 20 took {time.perf_counter() - t_phase} s")
+    return runs["4-shard"][0], after["launches"], k4
+
+
 def _np_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
@@ -3407,6 +3673,10 @@ def main():
     for k, n in zip((k1, k2, k3), scaled):
         k["launches_autoscaled_trainer"] = n
     launcher_phase(torch, smi)
+    torch.cuda.empty_cache()
+    (k4["launches_sharded_in_process"], k4["launches_sharded_runtime"],
+     k4_d256) = sharded_decoder_phase(torch, smi)
+    k4.update(k4_d256)
     k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
               **moe["step_profile"][0]["flash_fwd_kernel"],
               launches_moe_forward=moe["forward"],

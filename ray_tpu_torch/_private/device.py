@@ -7,7 +7,7 @@ drops quietly to the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -27,3 +27,33 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_devices(device: Optional[Union[str, torch.device, Sequence[
+        Union[str, torch.device]]]] = None) -> List[torch.device]:
+    """The devices a sharded entry point spreads over, one shard each.
+
+    ``None`` -> every visible card, ``cuda:0 .. cuda:{n-1}`` (inside a
+    worker granted k cards, the k cards of its ``CUDA_VISIBLE_DEVICES``);
+    without a card it raises, as ``resolve_device`` does.  One device
+    (``"cpu"``, ``"cuda:0"``) is one shard.  A sequence is taken as given,
+    a device repeated in it included (``["cpu"] * 8`` is 8 shards on the
+    CPU); it must name one device type, and only cards that exist."""
+    if device is None:
+        resolve_device(None)                   # raises without a card
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if isinstance(device, (str, torch.device)):
+        device = [device]
+    devs = [torch.device(d) for d in device]
+    if not devs:
+        raise ValueError("an empty device list")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"devices of more than one type: {devs}")
+    devs = [resolve_device(d) for d in devs]
+    missing = [d for d in devs if d.type == "cuda"
+               and d.index >= torch.cuda.device_count()]
+    if missing:
+        raise RuntimeError(f"no such card: {missing} "
+                           f"({torch.cuda.device_count()} visible)")
+    return devs

@@ -527,10 +527,24 @@ class NodeAgent:
     def _kill_worker(self, worker_id_hex: str, hard: bool = False):
         proc = self.workers.pop(worker_id_hex, None)
         if proc is not None:
+            threading.Thread(target=self._reap, args=(proc, hard),
+                             daemon=True).start()
+
+    @staticmethod
+    def _reap(proc, hard: bool):
+        """terminate (kill when ``hard``) -> wait -> kill -> wait, off the
+        reader thread: the worker is reaped, not left a zombie holding its
+        pid, and one that outlives its terminate still dies, so that what
+        it holds (a granted card) is released."""
+        try:
+            proc.kill() if hard else proc.terminate()
             try:
-                proc.kill() if hard else proc.terminate()
-            except Exception:
-                pass
+                proc.wait(timeout=3.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        except OSError:
+            pass
 
     def _read_segment(self, rid, name: str):
         try:

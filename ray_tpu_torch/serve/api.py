@@ -794,7 +794,11 @@ class _P2CRouterBase:
         # otherwise read as in-flight forever and skew routing.
         self._outstanding: List[tuple] = []
         self._last_reconcile = 0.0
-        self._ongoing = 0  # last reconcile's pending-request count
+        # The count reported to the autoscaler: the most requests in
+        # flight since the last reconcile (the pending count at the
+        # reconcile alone misses a burst that completed in between).
+        self._ongoing = 0
+        self._peak = 0
         # Dropped-ref ids queued by the (LOCK-FREE) finalizer, drained
         # under _lock on the next pick/dispatch: CPython runs finalizers
         # synchronously at deallocation, which can happen in a frame
@@ -865,8 +869,11 @@ class _P2CRouterBase:
         """Register one dispatched request: weak-track the result ref
         (the router must never pin results), bump the target's live
         count, arm the drop finalizer; every _RECONCILE_PERIOD also run
-        the ground-truth reconcile (ongoing count left in
-        ``self._ongoing``).  Returns True when the reconcile ran."""
+        the ground-truth reconcile and leave in ``self._ongoing`` the
+        most requests in flight since the last one.  A client that
+        sends bursts (8, wait for all, 8 again) reconciles at the first
+        request of a burst, when 1 is pending.  Returns True when the
+        reconcile ran."""
         import weakref
 
         now = time.monotonic()
@@ -875,10 +882,13 @@ class _P2CRouterBase:
         with self._lock:
             self._outstanding.append((weakref.ref(ref), key))
             self._count_dispatch_locked(ref.id().binary(), key)
+            self._peak = max(self._peak, len(self._counted))
             ran = now - self._last_reconcile >= self._RECONCILE_PERIOD
             if ran:
                 self._last_reconcile = now
-                self._ongoing = self._reconcile_outstanding_locked()
+                pending = self._reconcile_outstanding_locked()
+                self._ongoing = max(self._peak, pending)
+                self._peak = pending
         self._finalize_on_drop(ref)
         return ran
 

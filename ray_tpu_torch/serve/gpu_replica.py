@@ -1,13 +1,23 @@
-"""Device-resident greedy decode replica on one CUDA card (counterpart:
+"""Device-resident greedy decode replica on CUDA cards (counterpart:
 ``ray_tpu/serve/tpu_replica.py``).
 
-The same deployment the reference serves, with the card in place of the
-``"model"`` mesh (sharding the projection over several cards waits for
-the mesh slice).  Weights are integer-valued float32, so every matmul
-below float32's 2^24 integer window is exact and the decoded chains are
-bitwise comparable with ``reference_decode``, a plain host loop.  Greedy
-picks take the FIRST maximum (``torch.argmax``, like ``jnp.argmax`` and
-``np.argmax``): integer logits tie often.
+The same deployment the reference serves.  Where the reference shards
+the projection ``w`` by columns over a 1-D ``"model"`` mesh of every
+visible device, this replica keeps one column block of ``w`` on each
+device of its list (``device=None``: every visible card; a list may
+repeat a device, e.g. ``["cpu"] * 8``), from one process and with no
+process group.  The first device is the primary: it holds the embedding
+table, the hidden rows, the paged cache and K4's launches, as the
+reference replicates them.  Drawn weights pad the vocab to a multiple of
+the shard count, as the reference does.  Each step's rows go to every
+block's device, each block gives its max and first argmax, and the
+primary picks the first block that holds the global max.
+
+Weights are integer-valued float32, so every matmul below float32's 2^24
+integer window is exact and the decoded chains are bitwise comparable
+with ``reference_decode``, a plain host loop.  Greedy picks take the
+FIRST maximum (``torch.argmax``, like ``jnp.argmax`` and ``np.argmax``),
+across blocks too: integer logits tie often.
 
 Dense mode: the ``(MAX_BATCH, embed)`` hidden matrix stays on the card
 between steps; joiners' rows go up before the previous step's tokens are
@@ -59,7 +69,7 @@ import torch
 
 from ray_tpu_torch._private import segment_stream
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
-from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.device import resolve_devices
 from ray_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
 from ray_tpu_torch.serve.batching import batch
@@ -83,8 +93,10 @@ class MeshShardedDecoder:
 
     ``weights={"w", "emb", "wd"}`` (numpy; ``wd`` needed in paged mode)
     takes given weights, e.g. the reference decoder's ``_w_host`` /
-    ``_emb_host`` / ``_wd_host``; without it integer weights are drawn
-    from ``seed``.  ``device`` defaults to ``cuda:0``."""
+    ``_emb_host`` / ``_wd_host``, whose vocab must divide over the
+    shards; without it integer weights are drawn from ``seed``.
+    ``device`` is one device or a list of them, one projection shard
+    each (``resolve_devices``); it defaults to every visible card."""
 
     def __init__(self, embed: int = 32, vocab: int = 64, seed: int = 0,
                  paged: Optional[bool] = None, kv_blocks: int = 32,
@@ -94,8 +106,13 @@ class MeshShardedDecoder:
                  use_kernel: bool = True,
                  weights: Optional[Dict[str, Any]] = None,
                  device=None, prefill_ms_per_token: float = 0.0):
-        self._dev = resolve_device(device)
+        # The shards' devices (the reference's mesh); the first is the
+        # primary.
+        self._devices = resolve_devices(device)
+        self._dev = self._devices[0]
+        n = len(self._devices)
         if weights is None:
+            vocab = -(-vocab // n) * n           # divisible over the shards
             w, emb, wd = _integer_weights(embed, vocab, seed)
         else:
             # Copies: callers may hand read-only views (jax arrays).
@@ -108,7 +125,14 @@ class MeshShardedDecoder:
         self._embed, self._vocab = w.shape
         if emb.shape != (self._vocab, self._embed):
             raise ValueError(f"emb {emb.shape} does not fit w {w.shape}")
-        self._w = torch.from_numpy(w).to(self._dev)
+        if self._vocab % n:
+            raise ValueError(f"vocab {self._vocab} does not divide over "
+                             f"{n} shards")
+        # Column block k of the projection on device k.
+        cols = self._vocab // n
+        self._w = [torch.from_numpy(np.ascontiguousarray(
+            w[:, k * cols:(k + 1) * cols])).to(d)
+            for k, d in enumerate(self._devices)]
         self._emb = torch.from_numpy(emb).to(self._dev)
         # Card-resident hidden states, one row per batch slot.
         self._dev_x = torch.zeros((MAX_BATCH, self._embed),
@@ -170,10 +194,29 @@ class MeshShardedDecoder:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self._dev)
 
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """Greedy pick over the vocab of ``x @ w`` for rows ``x`` on the
+        primary, with ``w`` in column blocks: each block's max and first
+        argmax on its device, then on the primary the first block whose
+        max is the global max (``jnp.argmax``'s first-maximum rule across
+        the blocks).  The result stays on the primary: no host sync."""
+        if len(self._w) == 1:
+            return torch.argmax(x @ self._w[0], dim=-1)
+        vals, idxs = [], []
+        for w in self._w:
+            logits = x.to(w.device, non_blocking=True) @ w
+            i = torch.argmax(logits, dim=-1, keepdim=True)
+            vals.append(logits.gather(-1, i).to(self._dev))
+            idxs.append(i.to(self._dev))
+        vals, idxs = torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+        block = torch.argmax(vals, dim=-1, keepdim=True)
+        cols = self._w[0].shape[1]
+        return (block * cols + idxs.gather(-1, block)).squeeze(-1)
+
     # -- dense decode step --------------------------------------------------
     def _step(self, join_x: torch.Tensor, join_mask: torch.Tensor):
         x = torch.where(join_mask, join_x, self._dev_x)
-        tok = torch.argmax(x @ self._w, dim=-1)   # first max on ties
+        tok = self._project(x)                    # first max on ties
         return tok, self._emb[tok]
 
     def _force_pending(self):
@@ -315,7 +358,7 @@ class MeshShardedDecoder:
         last = self._read_last(live)                       # (B, embed)
         # Phase 3: draft k tokens per request on the host (integer-exact),
         # then verify them all in ONE batched target forward: position j's
-        # logits come from token j-1's value row.
+        # logits come from token j-1's value row; target is (B, k+1).
         drafts = []
         for s in live:
             t = s.state["last"]
@@ -329,8 +372,7 @@ class MeshShardedDecoder:
         for i, chain in enumerate(drafts):
             for j, t in enumerate(chain):
                 verify[i, j + 1] = self._emb_host[t]
-        logits = self._to_dev(verify) @ self._w
-        target = torch.argmax(logits, dim=-1).cpu().numpy()   # (B, k+1)
+        target = self._project(self._to_dev(verify)).cpu().numpy()
         # Phase 4: exact-match acceptance: the matching draft prefix plus
         # the target's correction token, i.e. the plain greedy chain.
         cow, wb, wo, wv = [], [], [], []

@@ -324,8 +324,12 @@ def test_loop_brings_a_card_node_up_for_a_trainer_and_drains_it(
             time.sleep(0.2)
         assert [n["is_head"] for n in c.rt.node_activity()
                 if n["alive"]] == [True]
+        # The node leaves non_terminated_nodes() once the head marks it
+        # dead, before terminate_node's Cluster.remove_node has seen its
+        # agent exit (it waits up to 5 s, then kills it): wait for both.
         deadline = time.monotonic() + 10
-        while time.monotonic() < deadline and provider.non_terminated_nodes():
+        while time.monotonic() < deadline and (
+                provider.non_terminated_nodes() or agent.poll() is None):
             time.sleep(0.1)
         assert provider.non_terminated_nodes() == []
         assert agent.poll() is not None

@@ -162,6 +162,34 @@ def test_killed_actor_on_agent_node_frees_its_card():
     assert after != held and gone
 
 
+def test_killed_actor_on_agent_node_is_reaped():
+    """The agent reaps the worker it kills: with no later spawn on the
+    node to reap it by the way, the killed process is gone, not left a
+    zombie that still holds its pid."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    c = Cluster(head_num_cpus=1)
+    try:
+        c.add_node(num_cpus=2, num_tpus=1, external=True)
+
+        class Holder:  # by value: the agent's workers cannot import tests/
+            def pid(self):
+                import os
+
+                return os.getpid()
+
+        holder = ray.remote(num_tpus=1)(Holder).remote()
+        held = ray.get(holder.pid.remote(), timeout=60)
+        ray.kill(holder)
+        deadline = time.time() + 10
+        while time.time() < deadline and os.path.exists(f"/proc/{held}"):
+            time.sleep(0.1)
+        gone = not os.path.exists(f"/proc/{held}")
+    finally:
+        c.shutdown()
+    assert gone
+
+
 def test_protocol_verbs_equal_the_reference():
     from ray_tpu._private import protocol as ref
     from ray_tpu_torch._private import protocol as port

@@ -189,3 +189,56 @@ def test_slow_starting_granted_replica_is_kept(monkeypatch):
     finally:
         serve.shutdown()
         ray.shutdown()
+
+
+def test_handle_reports_the_peak_ongoing_of_request_bursts():
+    """A client that keeps 8 requests in flight as bursts (send 8, wait
+    for all, send 8 again) has 8 ongoing, and that is what its handle
+    must report to the autoscaler.  The handle reports at the first
+    dispatch after its reconcile period: the count pending at that
+    instant alone is 1 (the burst before it has just completed), so it
+    reports the peak in flight since its last report."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import serve
+
+    class Recorder:
+        """The controller, but for the metric reports, which it keeps."""
+
+        def __init__(self, real):
+            self._real = real
+            self.sent = []
+
+        def __getattr__(self, name):
+            return getattr(self._real, name)
+
+        @property
+        def record_handle_metric(self):
+            sent = self.sent
+
+            class Method:
+                def remote(self, name, handle_id, ongoing, incarnation):
+                    sent.append(ongoing)
+
+            return Method()
+
+    ray.init(num_cpus=4)
+    try:
+        @serve.deployment(num_replicas=1, max_concurrency=16)
+        class Slow:
+            def __call__(self, body):
+                time.sleep(0.2)
+                return "ok"
+
+        handle = serve.run(Slow.bind(), name="bursty")
+        assert ray.get(handle.remote({}), timeout=60) == "ok"
+        rec = handle._controller = Recorder(handle._controller)
+        for _ in range(3):
+            time.sleep(handle._RECONCILE_PERIOD + 0.1)
+            refs = [handle.remote({}) for _ in range(8)]
+            assert ray.get(refs, timeout=60) == ["ok"] * 8
+            del refs
+        assert len(rec.sent) == 3, rec.sent
+        assert rec.sent[1:] == [8, 8], rec.sent
+    finally:
+        serve.shutdown()
+        ray.shutdown()
