@@ -252,7 +252,7 @@ Phases, each fatal on failure:
    ``FailureConfig(max_failures=1)``: at step 2 the worker reports its
    whole state (f32 params, both AdamW moments, the step count: about
    1.95 GB) as a checkpoint, and once the report has returned the
-   driver kills that worker with SIGKILL.  ``fit()`` must restart the
+   worker kills itself with SIGKILL.  ``fit()`` must restart the
    group from that checkpoint: the new worker, granted the same card,
    restores the state and runs steps 3-4, K1/K2/K3 launched 24/12/12 a
    step in its process, losses within 1e-3 of phase 11's steps 3-4
@@ -264,11 +264,34 @@ Phases, each fatal on failure:
    All 16 chains bitwise ``reference_decode``, no request failed.
    Both print the seconds from the kill to the death being seen, the
    card free and granted again, and the new worker's first step or
-   answer.
+   answer; (a) also splits the death: the kill, the worker a zombie (a
+   poller process reading ``/proc``), the head's reader at its EOF and
+   the death processed.  (c) The same replica, whose paged step waits on
+   a gate: 8 requests in flight in it (the handle counts 8, none ready),
+   SIGKILL of its worker, then the gate opens.  Each caller gets a chain
+   bitwise ``reference_decode`` or an actor error, none waits past 60 s;
+   the test sends every failed request again and the replacement, on
+   the card, answers each bitwise, K4 launched in its process.  Prints
+   the seconds from the kill to each caller's outcome, the card free and
+   granted again, and the replacement's first answer.
+22. Main path 17, a head failover under a card holder.  An external
+   head (``Cluster(external_head=True, head_num_tpus=1)``) and this
+   process as its client.  A client starts no trainer (it creates no
+   placement group, in the reference too), so a named actor granted the
+   card runs phase 11's loop one step a call: the flagship at full
+   width, phase 11's state, batch and optimizer, an NCCL group of world
+   size 1.  After step 2 the head is killed (SIGKILL) and restarted from
+   its snapshot.  The holder keeps its pid and ``CUDA_VISIBLE_DEVICES``
+   over all 4 steps; steps 3-4 are within 1e-3 of phase 11's (bitwise
+   printed), K1/K2/K3 24/12/12 a step in its process; a second
+   ``num_tpus=1`` task sent after the restart is not ready 10 s later,
+   and runs under the same card once the holder is killed.  Prints the
+   head's downtime, the restart to the holder's re-registration, and the
+   holder's end to the second grant.
 
 Launch counts are set to 0 just before each main path and read just after
-it (in paths 4-6, 13, 14, 15 b and 16, in the replica's, the trainer's or
-the job task's process).
+it (in paths 4-6, 13, 14, 15 b, 16 and 17, in the replica's, the
+trainer's, the holder's or the job task's process).
 Prints the kernels line, then as its last line ``{"ok": true, "device":
 {...}}``.
 Exits non-zero, with no result, when there is no card or the port is not
@@ -1341,6 +1364,24 @@ def process_start():
     return time.time() - (up - ticks / os.sysconf("SC_CLK_TCK"))
 
 
+def flagship_training(torch, dev):
+    """Phase 11's training of the flagship on ``dev``: a function that
+    builds its state from seed 0 (AdamW, lr 1e-3, warmup 2, 100 decay
+    steps), the 4 x 513 token batch from seed 1, and the step."""
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.train import (
+        default_optimizer, init_train_state, make_train_step)
+
+    cfg = _flagship_cfg()
+    opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (4, 513), dtype=torch.int64, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}
+    return (lambda: init_train_state(
+        cfg, opt, torch.Generator(device=dev).manual_seed(0), dev),
+        batch, make_train_step(cfg, opt))
+
+
 def trainer_loop(config):
     """Runs in the trainer's worker: phase 8's flagship state and batch,
     ``TRAINER_STEPS`` steps of the port's train step, each reported; the
@@ -1368,24 +1409,19 @@ def trainer_loop(config):
 
     import ray_tpu_torch
     from ray_tpu_torch.air import Checkpoint, session
-    from ray_tpu_torch.entry import _flagship_cfg
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.train import (
-        default_optimizer, init_train_state, make_train_step)
     from ray_tpu_torch.train.core import TrainState, tree_leaves, tree_map
 
     t_start = _time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    cfg = _flagship_cfg()
-    opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
     ckpt_at = config.get("ckpt_at")
     start = session.get_checkpoint()
     restored = None
+    fresh, batch, step = flagship_training(torch, dev)
     if start is None:
-        state = init_train_state(cfg, opt, torch.Generator(device=dev)
-                                 .manual_seed(0), dev)
+        state = fresh()
     else:
         t0 = _time.perf_counter()
         d = start.to_dict()
@@ -1398,10 +1434,6 @@ def trainer_loop(config):
         restored = {"step": d["step"], "writer_pid": d["pid"],
                     "restore_s": _time.perf_counter() - t0}
         del d
-    batch = {"tokens": torch.randint(
-        0, cfg.vocab_size, (4, 513), dtype=torch.int64, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(1))}
-    step = make_train_step(cfg, opt)
     keys = ("flash_fwd", "flash_dkdv", "flash_dq")
     names = ("flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel")
     profiled = None if ckpt_at is None else False
@@ -3671,22 +3703,64 @@ def sharded_decoder_phase(torch, smi):
 
 
 RECOVERY_CKPT_AT = 2     # phase 21: the trainer's full-state checkpoint step
+INFLIGHT = 8             # phase 21 (c): requests in flight at the kill
+FAILOVER_AFTER = 2       # phase 22: the head fails over after this step
+SECOND_WAIT_S = 10.0     # ... and a second one-card task waits this long
+
+# Phase 21 (a): waits for the hold file, then reads the killed worker's
+# state in /proc every half millisecond; prints when it turned into a
+# zombie and when it was reaped, on time.time()'s clock.
+ZOMBIE_POLLER = r"""
+import json, os, sys, time
+hold, out = sys.argv[1], {}
+deadline = time.time() + 900
+while not os.path.exists(hold) and time.time() < deadline:
+    time.sleep(0.0005)
+if os.path.exists(hold):
+    pid = json.load(open(hold))["pid"]
+    while time.time() < deadline:
+        try:
+            with open("/proc/%d/stat" % pid) as f:
+                st = f.read().rsplit(")", 1)[1].split()[0]
+        except FileNotFoundError:
+            out["gone"] = time.time()
+            break
+        if st in "ZX":
+            out.setdefault("zombie", time.time())
+        time.sleep(0.0005)
+print(json.dumps(out))
+"""
 
 
 class CardWatch(threading.Thread):
     """Reads the in-process head's tables every millisecond: when each
     worker holding one of the head node's cards was last seen alive, and
-    each change of whether the card of pool index 0 is free.  Phase 21
-    times a death, the card's release and its next grant from them."""
+    each change of whether the card of pool index 0 is free; and stamps
+    each worker death the head handles, at its reader's EOF and once
+    processed.  Phase 21 times a death, the card's release and its next
+    grant from them."""
 
     def __init__(self):
         super().__init__(daemon=True, name="card-watch")
         from ray_tpu_torch._private import api_internal
 
-        self._node = api_internal.require_runtime().head_node
+        rt = api_internal.require_runtime()
+        self._node = rt.head_node
         self.seen = {}           # pid -> (first seen, last seen), time.time
         self.free = []           # (time.time, card 0 free?) at each change
+        self.deaths = {}         # pid -> (the reader's EOF, death processed)
         self.stop = threading.Event()
+        on_death = rt._on_worker_death
+
+        def stamped(worker):
+            t_eof = time.time()
+            on_death(worker)
+            if worker.proc is not None:
+                self.deaths.setdefault(worker.proc.pid,
+                                       (t_eof, time.time()))
+
+        # The head's reader thread calls this at a worker's EOF.
+        rt._on_worker_death = stamped
 
     def run(self):
         last = None
@@ -3731,6 +3805,8 @@ def recovery_trainer_phase(torch, smi, phase11):
     ray_tpu_torch.init(num_cpus=4)
     watch = CardWatch()
     watch.start()
+    zombie = subprocess.Popen([sys.executable, "-c", ZOMBIE_POLLER, hold],
+                              stdout=subprocess.PIPE, text=True)
     try:
         trainer = DataParallelTrainer(
             trainer_loop, train_loop_config={
@@ -3747,10 +3823,17 @@ def recovery_trainer_phase(torch, smi, phase11):
     finally:
         watch.stop.set()
         ray_tpu_torch.shutdown()
+        try:
+            gone = json.loads(zombie.communicate(timeout=30)[0] or "{}")
+        except subprocess.TimeoutExpired:
+            zombie.kill()
+            zombie.communicate()
+            gone = {}
     check(result.error is None, f"fit() failed: {result.error!r}")
     check(os.path.exists(hold), "the trainer's worker was never killed")
     with open(hold) as f:
         killed = json.load(f)
+    eof, processed = watch.deaths.get(killed["pid"], (None, None))
     hist = result.metrics_history
     steps = [h["step"] for h in hist]
     check(steps == list(range(RECOVERY_CKPT_AT + 1, TRAINER_STEPS + 1)),
@@ -3779,6 +3862,12 @@ def recovery_trainer_phase(torch, smi, phase11):
         f"{first['loop_start'] - t_kill} s, its state restored in "
         f"{restored and restored['restore_s']} s, its first step done "
         f"{first['t_report'] - t_kill} s; fit() {fit_s} s")
+    log(f"phase 21 (a) on {smi}, the death from the kill: the worker a "
+        f"zombie {gone.get('zombie') and gone['zombie'] - t_kill} s (a "
+        f"poller process reading /proc), the head's reader at its EOF "
+        f"{eof and eof - t_kill} s, the death processed "
+        f"{processed and processed - t_kill} s, the zombie reaped "
+        f"{gone.get('gone') and gone['gone'] - t_kill} s")
     log(f"phase 21 (a): resumed worker pid {first['pid']} "
         f"CUDA_VISIBLE_DEVICES={first['cvd']!r} (restored from step "
         f"{restored and restored['step']} written by pid "
@@ -3910,6 +3999,281 @@ def recovery_replica_phase(torch, smi):
     return new["launches"]
 
 
+def gated_decoder(gate):
+    """Phase 9's probed decoder whose paged step waits for the file
+    ``gate`` to exist: requests sent before it opens stay in flight in
+    the replica."""
+
+    class GatedDecoder(probed_decoder()):
+        def _paged_step(self, slots):
+            import os
+
+            while not os.path.exists(gate):
+                time.sleep(0.005)
+            return super()._paged_step(slots)
+
+    return GatedDecoder
+
+
+def inflight_replica_phase(torch, smi):
+    """Phase 21 (c): phase 21 (b)'s replica, its paged step held by a
+    gate, with ``INFLIGHT`` of phase 20's requests in flight in it when
+    its worker is killed with SIGKILL; the gate opens after the kill.
+    Each caller's outcome is a chain or an actor error; every failed
+    request is sent again and answered by the controller's replacement
+    on the card.  Returns K4's launches in the replacement's process."""
+    import os
+    import signal
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder
+
+    t_phase = time.perf_counter()
+    card = first_visible_card()
+    kw = dict(embed=SHARDED_EMBED, kv_blocks=128)
+    host = MeshShardedDecoder(vocab=SHARDED_VOCAB, device="cpu", **kw)
+    weights = {"w": host._w_host, "emb": host._emb_host,
+               "wd": host._wd_host}
+    reqs = sharded_requests()[:INFLIGHT]
+    want = [host.reference_decode(r["prompt"], r["tokens"]) for r in reqs]
+    del host
+    gate = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-"), "gate")
+    ray_tpu_torch.init(num_cpus=4, _system_config={
+        "paged_kv": True, "prefix_caching": True, "speculative_k": 3})
+    watch = CardWatch()
+    watch.start()
+    outcome = [None] * INFLIGHT
+    after = [None] * INFLIGHT
+    again = {}
+    answered = {}
+    try:
+        dep = serve.deployment(gated_decoder(gate), name="inflight",
+                               ray_actor_options={"num_tpus": 1},
+                               max_concurrency=16)
+        handle = serve.run(dep.bind(weights=weights, device=None, **kw),
+                           name="inflight")
+        old = ray_tpu_torch.get(handle.method("probe").remote(reset=True),
+                                timeout=300)
+        (old_rep,) = handle._replicas
+        refs = [handle.remote(r) for r in reqs]
+        deadline = time.monotonic() + 60
+        while True:
+            with handle._lock:
+                ongoing = handle._reconcile_outstanding_locked()
+            if ongoing == INFLIGHT or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        time.sleep(0.5)       # the replica's batcher has them all
+        ready, _ = ray_tpu_torch.wait(refs, num_returns=INFLIGHT, timeout=0)
+        t_kill = time.time()
+        os.kill(old["pid"], signal.SIGKILL)
+        open(gate, "w").close()
+
+        def caller(i):
+            try:
+                outcome[i] = ray_tpu_torch.get(refs[i], timeout=60)
+            except Exception as e:  # noqa: BLE001 -- the class is checked
+                outcome[i] = type(e).__name__
+            after[i] = time.time() - t_kill
+
+        run_threads(caller, INFLIGHT)
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and [
+                r._actor_id for r in handle._replicas] in (
+                [old_rep._actor_id], []):
+            time.sleep(0.01)
+        (new_rep,) = handle._replicas
+        started = ray_tpu_torch.get(
+            handle.method("probe").remote(reset=True), timeout=300)
+        failed = [i for i, o in enumerate(outcome) if isinstance(o, str)]
+
+        def resend(j):                            # main path 21c
+            i = failed[j]
+            again[i] = ray_tpu_torch.get(handle.remote(reqs[i]),
+                                         timeout=300)
+            answered[i] = time.time()
+
+        run_threads(resend, len(failed))
+        new = ray_tpu_torch.get(handle.method("probe").remote(),
+                                timeout=300)
+    finally:
+        watch.stop.set()
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    t_free = watch.after(t_kill, True)
+    t_grant = watch.after(t_free, False) if t_free else None
+    first_answer = min(answered.values(), default=None)
+    kinds = [o if isinstance(o, str) else "chain" for o in outcome]
+    log(f"phase 21 (c) on {smi}: replica pid {old['pid']} "
+        f"CUDA_VISIBLE_DEVICES={old['cvd']!r} killed (SIGKILL) with "
+        f"{ongoing} requests in flight in its gated step ({len(ready)} "
+        f"ready); the callers' outcomes {kinds}, seconds from the kill "
+        f"{after}; card free {t_free and t_free - t_kill} s, granted "
+        f"again {t_grant and t_grant - t_kill} s, the replacement's first "
+        f"answer to a request sent again "
+        f"{first_answer and first_answer - t_kill} s; replacement pid "
+        f"{new['pid']} CUDA_VISIBLE_DEVICES={new['cvd']!r}, tensors on "
+        f"{new['device']}, K4 launches {new['launches']} in its process "
+        f"over the {len(failed)} requests sent again (reset from "
+        f"{started['launches']})")
+    check(ongoing == INFLIGHT and not ready,
+          f"{ongoing} requests in flight, {len(ready)} ready at the kill")
+    check(all(a is not None and a < 60 for a in after),
+          f"a caller waited past 60 s: {after}")
+    for r, o, w in zip(reqs, outcome, want):
+        check(o == w or o in ("ActorDiedError", "RayActorError"),
+              f"in-flight request {r}: {o}")
+    for i in failed:
+        check(again.get(i) == want[i], f"the request sent again differs "
+              f"from reference_decode for {reqs[i]}")
+    check(new_rep._actor_id != old_rep._actor_id and new["pid"] != old["pid"]
+          and new["cvd"] == card == old["cvd"] and new["device"] == "cuda",
+          f"the replacement is not a new replica on the card: {new}")
+    check(not failed or new["launches"] > 0,
+          f"K4 never launched in the replacement: {new}")
+    log(f"phase 21 (c): every chain answered or sent again bitwise "
+        f"reference_decode; phase 21 (c) took "
+        f"{time.perf_counter() - t_phase} s")
+    return new["launches"]
+
+
+class FlagshipHolder:
+    """Phase 22's holder of the card: phase 11's training in an NCCL group
+    of world size 1, one step a call."""
+
+    def __init__(self):
+        import socket
+
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=1, rank=0)
+        fresh, self._batch, self._step = flagship_training(
+            torch, torch.device("cuda:0"))
+        self._state = fresh()
+
+    def step(self):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        self._state, m = self._step(self._state, self._batch)
+        torch.cuda.synchronize()
+        return {"step": self._state.step, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "step_s": time.perf_counter() - t0, "pid": os.getpid(),
+                "cvd": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "launches": dict(_build.launches)}
+
+    def reset_launches(self):
+        from ray_tpu_torch.ops import _build
+
+        _build.reset_launches()
+
+
+def granted_card():
+    """A one-card task: its card, pid and start time."""
+    import os
+
+    return {"cvd": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "pid": os.getpid(), "t": time.time()}
+
+
+def failover_phase(torch, smi, phase11):
+    """Phase 22: phase 11's training in a named actor granted the card
+    of an external head's node; the head is killed and restarted after
+    step 2, the holder re-registers and runs steps 3-4; a second
+    one-card task waits until the holder is killed.  Returns K1/K2/K3's
+    launches in the holder over steps 3-4."""
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.entry import _flagship_cfg
+    from ray_tpu_torch.util import state
+
+    t_phase = time.perf_counter()
+    card = first_visible_card()
+    L = _flagship_cfg().num_layers
+    torch.cuda.empty_cache()
+    c = Cluster(external_head=True, head_num_cpus=4, head_num_tpus=1)
+    try:
+        h = ray_tpu_torch.remote(num_tpus=1)(FlagshipHolder).options(
+            name="holder").remote()
+        steps = [ray_tpu_torch.get(h.step.remote(), timeout=600)
+                 for _ in range(FAILOVER_AFTER)]
+        t_kill = time.time()
+        c.kill_head()
+        time.sleep(0.8)
+        t_restart = time.time()
+        c.restart_head()
+        t_up = time.time()
+        deadline = time.time() + 120
+        while time.time() < deadline and not any(
+                a["name"] == "holder" and a["state"] == "ALIVE"
+                for a in state.list_actors()):
+            time.sleep(0.05)
+        t_alive = time.time()
+        ray_tpu_torch.get(h.reset_launches.remote(), timeout=60)
+        steps += [ray_tpu_torch.get(h.step.remote(), timeout=600)   # 22
+                  for _ in range(TRAINER_STEPS - FAILOVER_AFTER)]
+        second = ray_tpu_torch.remote(num_tpus=1)(granted_card).remote()
+        ready, _ = ray_tpu_torch.wait([second], timeout=SECOND_WAIT_S)
+        t_end = time.time()
+        ray_tpu_torch.kill(h)
+        got = ray_tpu_torch.get(second, timeout=300)
+    finally:
+        c.shutdown()
+    losses = [s["loss"] for s in steps]
+    norms = [s["grad_norm"] for s in steps]
+    launches = steps[-1]["launches"]
+    n = TRAINER_STEPS - FAILOVER_AFTER
+    k = [launches.get(key, 0)
+         for key in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    want = phase11["losses"]
+    bitwise = (losses[FAILOVER_AFTER:] == want[FAILOVER_AFTER:] and
+               norms[FAILOVER_AFTER:] == phase11["grad_norms"][
+                   FAILOVER_AFTER:])
+    log(f"phase 22 on {smi}: holder pids {[s['pid'] for s in steps]}, "
+        f"CUDA_VISIBLE_DEVICES {[s['cvd'] for s in steps]}; the head "
+        f"killed after step {FAILOVER_AFTER}, down {t_up - t_kill} s "
+        f"(killed to restarted and ready), its restart to the holder's "
+        f"re-registration {t_alive - t_up} s; losses {losses}, grad norms "
+        f"{norms}; phase 11's losses {want}, grad norms "
+        f"{phase11['grad_norms']}; steps {FAILOVER_AFTER + 1}-"
+        f"{TRAINER_STEPS} bitwise {bitwise}; K1/K2/K3 launches in the "
+        f"holder {k} over steps "
+        f"{FAILOVER_AFTER + 1}-{TRAINER_STEPS}; step times "
+        f"{[s['step_s'] * 1e3 for s in steps]} ms; a second num_tpus=1 "
+        f"task ready {SECOND_WAIT_S} s after it was sent: {bool(ready)}, "
+        f"granted {got['t'] - t_end} s after the holder's kill, "
+        f"CUDA_VISIBLE_DEVICES={got['cvd']!r}")
+    check(len({s["pid"] for s in steps}) == 1
+          and {s["cvd"] for s in steps} == {card},
+          f"the holder changed across the failover: {steps}")
+    check([s["step"] for s in steps] == list(range(1, TRAINER_STEPS + 1)),
+          f"the holder's steps {[s['step'] for s in steps]}")
+    check(all(abs(a - b) <= 1e-3 for a, b in zip(losses, want)),
+          f"the holder's losses {losses} vs phase 11's {want}")
+    check(k == [2 * L * n, L * n, L * n],
+          f"K1/K2/K3 launches in the holder {k}")
+    check(not ready, f"a second one-card task ran while the holder held "
+          f"the card: {got}")
+    check(got["cvd"] == card and got["pid"] != steps[0]["pid"],
+          f"the second one-card task: {got}")
+    log(f"phase 22 took {time.perf_counter() - t_phase} s")
+    return k
+
+
 def _np_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
@@ -4003,6 +4367,10 @@ def main():
                                                          trainer)):
         k["launches_recovered_trainer"] = n
     k4["launches_recovered_replica"] = recovery_replica_phase(torch, smi)
+    k4["launches_inflight_replacement"] = inflight_replica_phase(torch, smi)
+    torch.cuda.empty_cache()
+    for k, n in zip((k1, k2, k3), failover_phase(torch, smi, trainer)):
+        k["launches_failover_holder"] = n
     k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
               **moe["step_profile"][0]["flash_fwd_kernel"],
               launches_moe_forward=moe["forward"],

@@ -401,7 +401,8 @@ class _WorkerRuntime:
         is cumulative, per-key MONOTONIC claiming makes racing flushers
         safe: a flusher that snapshotted earlier but claims later sees
         nothing new and ships nothing — never a duplicate or negative
-        delta."""
+        delta.  The claim and its write share one send_lock hold
+        (``_ship_xfer``)."""
         cur = self._pull_registry.stats()
         # Lease-plane counters ride the same delta stream (the head
         # aggregates leased_submits/spillbacks next to its own
@@ -424,16 +425,37 @@ class _WorkerRuntime:
         train_mod = sys.modules.get("ray_tpu_torch.train.pipeline_actors")
         if train_mod is not None:
             cur.update(train_mod.train_stats())
-        with self._xfer_lock:
-            delta = {}
-            for k, v in cur.items():
-                sent = self._xfer_sent.get(k, 0)
-                if v > sent:
-                    delta[k] = v - sent
-                    self._xfer_sent[k] = v
-            if not delta:
-                return
-        self._send(("xfer_stats", delta))
+        self._ship_xfer(cur)
+
+    def flush_train_stats(self):
+        """Ship the training counters' deltas AHEAD of a task's result,
+        as its spans are: a stage actor is killed as soon as its trainer
+        holds the step's results (``PipelineTrainer.shutdown``), before
+        the periodic or queue-drain flush would ship what the step
+        counted.  Reads only the training module's leaf-locked snapshot
+        (no data-plane ``stats()``), and nothing in a worker that never
+        imported it."""
+        train_mod = sys.modules.get("ray_tpu_torch.train.pipeline_actors")
+        if train_mod is not None:
+            self._ship_xfer(train_mod.train_stats())
+
+    def _ship_xfer(self, cur: Dict[str, int]):
+        """Claim each counter's growth past what was shipped, and write
+        the claim, under ONE send_lock hold.  So a flush that returns has
+        put on the wire every delta claimed before it, its own and a
+        racing flusher's: with the write after the claim's lock, a flush
+        could find nothing new while the claimant had yet to write, and
+        the process could be killed in between."""
+        with self.send_lock:
+            with self._xfer_lock:
+                delta = {}
+                for k, v in cur.items():
+                    sent = self._xfer_sent.get(k, 0)
+                    if v > sent:
+                        delta[k] = v - sent
+                        self._xfer_sent[k] = v
+            if delta:
+                self._send_wire([("xfer_stats", delta)])
 
     def flush_decrefs(self):
         head_bins = self._drain_decrefs()
@@ -1563,6 +1585,7 @@ def _execute(rt: _WorkerRuntime, fns: _FunctionCache, task: dict,
             if asyncio.iscoroutine(result):
                 result = _run_coroutine(result)
         returns, nested = _pack_returns(rt, task_id, result, num_returns)
+        rt.flush_train_stats()
         if dreply is not None:
             # Direct-pushed task: the reply goes straight to the owning
             # caller on its connection, never through the head.  Nested
@@ -1587,6 +1610,7 @@ def _execute(rt: _WorkerRuntime, fns: _FunctionCache, task: dict,
         err = exc.TaskError.from_exception(name, e)
         payload = _pickle_error(err)
         returns = [(protocol.ERROR, payload)] * max(1, num_returns)
+        rt.flush_train_stats()
         if dreply is not None:
             dreply[0].reply(dreply[1], False, returns, {})
         else:

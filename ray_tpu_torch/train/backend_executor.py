@@ -114,11 +114,15 @@ class BackendExecutor:
             seg = ev.get("checkpoint_segment")
             if seg is not None:
                 # A streamed checkpoint's bytes, landed in this node's
-                # store; taking them frees the segment.
+                # store; taking them frees the segment.  numpy's copy
+                # lets go of the GIL: ``tobytes()`` held it for over a
+                # second on a 1.3 GB checkpoint, and with it every head
+                # thread of this process, so a worker killed right
+                # after its report was seen dead that much later.
                 ev["checkpoint"] = segment_stream.take(
-                    seg, lambda a: a.tobytes())
+                    seg, lambda a: a.copy())
             self.streamed_reports.append(ev)
-            if ev.get("checkpoint") and ev.get("rank") == 0:
+            if ev.get("checkpoint") is not None and ev.get("rank") == 0:
                 self.latest_checkpoint = Checkpoint.from_bytes(
                     ev["checkpoint"])
 

@@ -71,8 +71,8 @@ from ray_tpu_torch.train.trees import tree_leaves, tree_map, tree_unflatten
 
 # ------------------------------------------------------------- counters --
 # Process-local cumulative counters.  In workers (stage actors, remote
-# learners) they ride the periodic ("xfer_stats", delta) flush
-# (worker_main.flush_xfer_stats looks this module up lazily); in the
+# learners) their ("xfer_stats", delta) rides ahead of each task's result
+# and the periodic flush (worker_main looks this module up lazily); in the
 # driver/head process transfer_stats() merges them directly.  All zero
 # while distributed_training is off.
 _STATS_LOCK = threading.Lock()  # lock-order: leaf (see module docstring)

@@ -191,6 +191,60 @@ def test_distributed_1f1b_bitwise_vs_reference(runtime):
     assert got["stage_restarts"] == before["stage_restarts"]
 
 
+LATE_FLUSH_S = 30.0
+
+
+class _LateFlushStageFn:
+    """``_stage_fn``, which, unpickled in a stage's process (its actor's
+    constructor), makes that worker's periodic and queue-drain flush of
+    counter deltas ship nothing for ``LATE_FLUSH_S``: a late tick, held
+    open for as long as the test needs it."""
+
+    def __call__(self, sp, x):
+        return _stage_fn(sp, x)
+
+    def __getstate__(self):
+        return {"late_s": LATE_FLUSH_S}
+
+    def __setstate__(self, state):
+        from ray_tpu_torch._private import worker_main
+
+        rt = worker_main.get_worker_runtime()
+        if rt is None or getattr(rt, "_late_flush", False):
+            return
+        flush, since = rt.flush_xfer_stats, time.monotonic()
+
+        def late_flush():
+            if time.monotonic() - since >= state["late_s"]:
+                flush()
+
+        rt.flush_xfer_stats = late_flush
+        rt._late_flush = True
+
+
+def test_stage_counters_reach_the_head_before_its_kill(runtime):
+    """A stage's counters do not wait for its periodic flush: with that
+    flush held back in both stages, one 1F1B step and an immediate
+    ``shutdown()`` (``ray.kill`` of the stages) still leave the step's
+    (pp-1) * M + (pp-1) * M pushes at the head, as the pin above reads
+    them."""
+    from ray_tpu_torch.train import sgd
+
+    w, x, t = _int_data()
+    before = _counters(runtime)
+    tr = PipelineTrainer(
+        _LateFlushStageFn(), _loss_fn, [{"w": w[:2]}, {"w": w[2:]}],
+        optimizer=sgd(1.0), num_microbatches=M, device="cpu")
+    assert tr.distributed
+    t0 = time.monotonic()
+    tr.step(x, t)
+    tr.shutdown()
+    assert time.monotonic() - t0 < LATE_FLUSH_S
+    time.sleep(1.2)
+    got = _counters(runtime)
+    assert got["microbatch_pushes"] - before["microbatch_pushes"] >= 2 * M
+
+
 def test_fill_drain_matches_1f1b_and_single_host(runtime):
     """The fill/drain baseline and the single-host path compute the
     1F1B step bitwise, over two steps."""

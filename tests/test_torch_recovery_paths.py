@@ -19,6 +19,15 @@ small size, against the reference.
   replacement answers 8 more.  Every chain of both batches is bitwise the
   reference decoder's ``reference_decode``, no request fails, and the
   replica's actor id and process change.
+- The driver's drain of a streamed checkpoint: taking 512 MiB out of the
+  node store holds the GIL no longer than a leaf at a time, so the head's
+  reader threads in the same process see a worker's death at once.
+- Requests in flight at a replica's death (phase 21 (c)), in each
+  package: 8 requests wait in a gated paged step when the replica's
+  worker is killed; each caller gets a chain bitwise
+  ``reference_decode`` or an actor error within 60 s, the port's callers
+  what the reference's get, and the replacement answers each failed
+  request bitwise when the test sends it again.
 
 The loops run in worker processes, which import this module to unpickle
 them: it imports neither torch nor jax at its top.
@@ -157,6 +166,70 @@ def test_trainer_resumes_bitwise_after_its_worker_is_killed(jax_run):
             assert x.dtype == y.dtype and np.array_equal(x, y)
 
 
+class _Stream:
+    """The one event a worker's report of a streamed checkpoint
+    publishes, for ``BackendExecutor._drain_stream``."""
+
+    def __init__(self, payload):
+        self._payload = [payload]
+
+    def poll_events(self, topic):
+        out, self._payload = self._payload, []
+        return out
+
+
+def test_drain_of_a_large_checkpoint_leaves_the_head_its_threads():
+    """Taking a streamed checkpoint of 512 MiB out of the node store
+    holds the GIL for no more than a leaf at a time (the leaves are CPU
+    tensors, as a train loop's are).  The driver's drain runs in the
+    process of the head's reader threads: one copy of the whole blob
+    under the GIL (``tobytes()``) held off the EOF of a worker killed
+    right after its report for as long as the copy took."""
+    import pickle
+
+    import torch
+
+    from ray_tpu_torch._private import api_internal, segment_stream
+    from ray_tpu_torch.train.backend_executor import BackendExecutor
+
+    leaves = {f"w{i}": torch.full((4 << 20,), float(i)) for i in range(32)}
+    ray.init(num_cpus=1)
+    gaps, stop = [], threading.Event()
+
+    def sleeper():
+        last = time.monotonic()
+        while not stop.is_set():
+            time.sleep(0.001)
+            now = time.monotonic()
+            gaps.append(now - last)
+            last = now
+
+    try:
+        rt = api_internal.require_runtime()
+        blob = Checkpoint.from_dict({"step": 2, "params": leaves}).to_bytes()
+        seg = segment_stream.land(np.frombuffer(blob, np.uint8),
+                                  rt.store_id)
+        assert seg is not None
+        del blob
+        ex = BackendExecutor(TorchConfig(distributed=False),
+                             ScalingConfig(num_workers=1))
+        stream = _Stream(pickle.dumps({
+            "rank": 0, "metrics": {"step": 2}, "checkpoint": None,
+            "checkpoint_segment": seg}))
+        watch = threading.Thread(target=sleeper, daemon=True)
+        watch.start()
+        time.sleep(0.05)
+        ex._drain_stream(stream, "train-drain", pickle)
+    finally:
+        stop.set()
+        ray.shutdown()
+    got = ex.latest_checkpoint.to_dict()
+    assert got["step"] == 2 and sorted(got["params"]) == sorted(leaves)
+    for k, v in leaves.items():
+        assert torch.equal(got["params"][k], v), k
+    assert max(gaps) < 0.2, f"the drain held the GIL {max(gaps)} s"
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -238,3 +311,148 @@ def test_killed_replica_is_replaced_and_answers_bitwise():
     assert new._actor_id != old._actor_id and new_pid != old_pid
     for r, got, w in zip(REQS, first + second, want):
         assert got == w, r
+
+
+INFLIGHT = 8
+OUTCOMES = {}
+
+
+def _gated_decoder(base):
+    """``base`` (either package's decoder) with a ``pid`` method and a
+    paged step that waits for the file ``gate`` to exist: requests sent
+    before the gate opens stay in flight in the replica.  Defined here,
+    so that it pickles by value into the replica's worker."""
+
+    class GatedDecoder(base):
+        def __init__(self, *args, gate=None, **kwargs):
+            super().__init__(*args, **kwargs)
+            self._gate = gate
+
+        def pid(self):
+            import os
+
+            return os.getpid()
+
+        def _paged_step(self, slots):
+            import os
+            import time
+
+            while not os.path.exists(self._gate):
+                time.sleep(0.005)
+            return super()._paged_step(slots)
+
+    return GatedDecoder
+
+
+def _inflight_scenario(pkg_name, gate, want):
+    """``INFLIGHT`` requests held in flight by the gate, the replica's
+    worker killed with SIGKILL, then the gate opened: each caller's
+    answer or exception class, the seconds from the kill to each
+    outcome, and the chains the replacement gives the failed requests
+    when the test sends them again."""
+    import importlib
+
+    ray_ = importlib.import_module(pkg_name)
+    serve = importlib.import_module(pkg_name + ".serve")
+    if pkg_name == "ray_tpu":
+        from ray_tpu.serve.tpu_replica import MeshShardedDecoder as base
+
+        bind = {}
+    else:
+        from ray_tpu_torch.serve.gpu_replica import MeshShardedDecoder as base
+
+        bind = {"device": "cpu", "weights": want["weights"]}
+    reqs = REQS[:INFLIGHT]
+    out = {"outcome": [None] * INFLIGHT, "after_s": [None] * INFLIGHT}
+    ray_.init(num_cpus=4, _system_config={
+        "paged_kv": True, "prefix_caching": True, "speculative_k": 3})
+    try:
+        dep = serve.deployment(_gated_decoder(base), name="inflight",
+                               max_concurrency=16)
+        handle = serve.run(dep.bind(kv_blocks=64, gate=gate, **bind),
+                           name="inflight")
+        pid = ray_.get(handle.method("pid").remote(), timeout=120)
+        (old,) = handle._replicas
+        refs = [handle.remote(r) for r in reqs]
+        time.sleep(0.5)
+        ready, _ = ray_.wait(refs, num_returns=INFLIGHT, timeout=0)
+        with handle._lock:
+            out["ongoing"] = handle._reconcile_outstanding_locked()
+        out["ready_at_kill"] = len(ready)
+        t_kill = time.time()
+        os.kill(pid, signal.SIGKILL)
+        open(gate, "w").close()
+
+        def caller(i):
+            try:
+                out["outcome"][i] = ray_.get(refs[i], timeout=60)
+            except Exception as e:  # noqa: BLE001 -- the class is compared
+                out["outcome"][i] = type(e).__name__
+            out["after_s"][i] = time.time() - t_kill
+
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(INFLIGHT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(70)
+        out["hung"] = sum(t.is_alive() for t in threads)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and [
+                r._actor_id for r in handle._replicas] in (
+                [old._actor_id], []):
+            time.sleep(0.05)
+        failed = [i for i, o in enumerate(out["outcome"])
+                  if isinstance(o, str)]
+        out["resubmitted"] = {
+            i: ray_.get(handle.remote(reqs[i]), timeout=120)
+            for i in failed}
+        out["new_pid"] = ray_.get(handle.method("pid").remote(), timeout=60)
+        out["pid"] = pid
+    finally:
+        serve.shutdown()
+        ray_.shutdown()
+    return out
+
+
+@pytest.fixture(scope="module")
+def inflight_want():
+    """The reference decoder's weights and its ``reference_decode`` of
+    the in-flight requests."""
+    from ray_tpu.serve.tpu_replica import MeshShardedDecoder as JaxDecoder
+
+    jdec = JaxDecoder(paged=True, kv_blocks=64, speculative_k=3)
+    return {"weights": {"w": jdec._w_host, "emb": jdec._emb_host,
+                        "wd": jdec._wd_host},
+            "chains": [jdec.reference_decode(r["prompt"], r["tokens"])
+                       for r in REQS[:INFLIGHT]]}
+
+
+@pytest.mark.parametrize("pkg_name", ["ray_tpu", "ray_tpu_torch"])
+def test_replica_killed_with_requests_in_flight(tmp_path, inflight_want,
+                                                pkg_name):
+    """A replica killed while ``INFLIGHT`` requests wait in its step:
+    each caller gets an answer bitwise ``reference_decode`` or an actor
+    error, none waits past 60 s, and the replacement answers every failed
+    request bitwise when it is sent again.  The handle adds no retry of
+    its own; the port's callers get what the reference's get."""
+    out = _inflight_scenario(pkg_name, str(tmp_path / "gate"),
+                             inflight_want)
+    OUTCOMES[pkg_name] = out
+    print(f"{pkg_name}: ongoing {out['ongoing']} at the kill; outcomes "
+          f"{[o if isinstance(o, str) else 'answer' for o in out['outcome']]}"
+          f", seconds from the kill {out['after_s']}")
+    chains = inflight_want["chains"]
+    assert out["ongoing"] == INFLIGHT and out["ready_at_kill"] == 0
+    assert out["hung"] == 0
+    assert all(s is not None and s < 60 for s in out["after_s"])
+    for o, w in zip(out["outcome"], chains):
+        assert o == w or o in ("ActorDiedError", "RayActorError"), o
+    for i, got in out["resubmitted"].items():
+        assert got == chains[i], i
+    assert out["new_pid"] != out["pid"]
+    ref = OUTCOMES.get("ray_tpu")
+    if pkg_name == "ray_tpu_torch" and ref is not None:
+        assert [o if isinstance(o, str) else "answer"
+                for o in out["outcome"]] == \
+            [o if isinstance(o, str) else "answer" for o in ref["outcome"]]
