@@ -29,7 +29,9 @@ def init(num_cpus: Optional[int] = None, num_tpus: Optional[int] = None,
     ``CUDA_VISIBLE_DEVICES`` leaves visible; pass 0 to disable.
     """
     import os as _os
+    import time as _time
 
+    t_init = _time.time()
     if address is None:
         address = _os.environ.get("RAY_TPU_CLIENT_ADDRESS")
     if address:
@@ -63,6 +65,9 @@ def init(num_cpus: Optional[int] = None, num_tpus: Optional[int] = None,
     rt = Runtime(config, num_cpus=num_cpus, num_tpus=num_tpus,
                  resources=resources, job_name=namespace)
     api_internal.set_global_runtime(rt)
+    from ray_tpu_torch.util import tracing
+
+    tracing.record_phase("runtime.init", t_init, _time.time())
     return rt
 
 

@@ -41,6 +41,7 @@ from ray_tpu_torch._private import object_ref as object_ref_mod
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.shm_store import ShmStore
 from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch.util import tracing
 
 
 class _WorkerRuntime:
@@ -2040,6 +2041,7 @@ def worker_entry(conn, worker_id_hex: str, session: str, shm_dir: str,
     if pkg_id:
         _setup_working_dir(rt, pkg_id)
 
+    booted = False
     while True:
         with tq_cv:
             drained = not tasks
@@ -2055,6 +2057,12 @@ def worker_entry(conn, worker_id_hex: str, session: str, shm_dir: str,
                 tq_cv.wait()
             msg = tasks.popleft()
         tag = msg[0]
+        if not booted and tag in ("exec", "create_actor"):
+            # The process's start to its first task, shipped ahead of
+            # that task's result.
+            booted = True
+            tracing.record_phase("worker.boot", tracing.process_start(),
+                                 time.time(), msg[1]["task_id"])
         if tag == "kill":
             os._exit(0)
         elif tag == "checkpoint_now":

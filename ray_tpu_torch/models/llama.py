@@ -62,6 +62,7 @@ from ray_tpu_torch.parallel.pipeline import pipeline_apply, split_stages
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES, LogicalAxisRules, P, manual_shard_map, shard_pytree,
     with_logical_constraint)
+from ray_tpu_torch.util import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,12 +295,13 @@ def _run_layers(x, layers, cfg: LlamaConfig, cos, sin, mesh, rules,
     unbound = {n: w.unbind(0) for n, w in layers.items()}
     n_layers = len(next(iter(unbound.values())))
     remat = cfg.remat and torch.is_grad_enabled()
+    remat_kw = tracing.remat_kwargs() if remat else {}
     aux = None
     for i in range(n_layers):
         lp = {n: w[i] for n, w in unbound.items()}
         if remat:
             x, a = checkpoint(_layer, x, lp, cfg, cos, sin, mesh, rules,
-                              sp_manual, use_reentrant=False)
+                              sp_manual, use_reentrant=False, **remat_kw)
         else:
             x, a = _layer(x, lp, cfg, cos, sin, mesh, rules, sp_manual)
         if a is not None:

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.ops.layers import swiglu
+from ray_tpu_torch.util import tracing
 
 
 class MoEOutput(NamedTuple):
@@ -68,6 +69,10 @@ def assign_slots(probs: torch.Tensor, gate_vals: torch.Tensor,
     pos = pos_flat.reshape(num_selected, t, e).transpose(0, 1)    # (T, k, E)
     pos = (pos * onehot).sum(-1)                                  # (T, k)
     within = pos < capacity
+    if tracing.counting():
+        tracing.count("moe.assignments", t * num_selected)
+        tracing.count("moe.kept", within.sum())
+        tracing.count("moe.slots", e * capacity)
 
     disp = probs.new_zeros((t, e, capacity))
     comb = torch.zeros_like(disp)
@@ -117,18 +122,21 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     t, d = x.shape
     e = router_w.shape[1]
     capacity = max(1, int(capacity_factor * t * num_selected / e))
-    logits = x @ router_w.to(x.dtype)
-    disp, comb, aux = _route(logits, num_selected, capacity)
-
-    expert_in = torch.einsum("tec,td->ecd", disp.to(x.dtype), x)
-    if constrain is not None:
-        expert_in = constrain(expert_in, ("expert", None, "embed"))
-    gate = torch.einsum("ecd,edm->ecm", expert_in, w_gate.to(x.dtype))
-    up = torch.einsum("ecd,edm->ecm", expert_in, w_up.to(x.dtype))
-    act = swiglu(gate, up)
-    expert_out = torch.einsum("ecm,emd->ecd", act, w_down.to(x.dtype))
-    if constrain is not None:
-        expert_out = constrain(expert_out, ("expert", None, "embed"))
-    out = torch.einsum("tec,ecd->td", comb.to(x.dtype), expert_out)
-    probs = torch.softmax(logits.float(), dim=-1)
+    with tracing.span("moe.route"):
+        logits = x @ router_w.to(x.dtype)
+        disp, comb, aux = _route(logits, num_selected, capacity)
+    with tracing.span("moe.dispatch"):
+        expert_in = torch.einsum("tec,td->ecd", disp.to(x.dtype), x)
+        if constrain is not None:
+            expert_in = constrain(expert_in, ("expert", None, "embed"))
+    with tracing.span("moe.experts"):
+        gate = torch.einsum("ecd,edm->ecm", expert_in, w_gate.to(x.dtype))
+        up = torch.einsum("ecd,edm->ecm", expert_in, w_up.to(x.dtype))
+        act = swiglu(gate, up)
+        expert_out = torch.einsum("ecm,emd->ecd", act, w_down.to(x.dtype))
+        if constrain is not None:
+            expert_out = constrain(expert_out, ("expert", None, "embed"))
+    with tracing.span("moe.combine"):
+        out = torch.einsum("tec,ecd->td", comb.to(x.dtype), expert_out)
+        probs = torch.softmax(logits.float(), dim=-1)
     return MoEOutput(out, aux, probs)

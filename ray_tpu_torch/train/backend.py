@@ -84,18 +84,23 @@ def _init_process_group(init_method: str, world_size: int, rank: int,
     import torch
     import torch.distributed as dist
 
-    dev = torch.device("cpu")
-    if backend == "nccl":
-        # The grant narrows this worker to its cards: the first is cuda:0.
-        dev = torch.device("cuda", 0)
-        torch.cuda.set_device(dev)
-    dist.init_process_group(
-        backend, init_method=init_method, world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=_JOIN_TIMEOUT_S))
-    ones = torch.ones(1, device=dev)
-    dist.all_reduce(ones)
+    from ray_tpu_torch.util import tracing
+
+    with tracing.phase("train.process_group"):
+        dev = torch.device("cpu")
+        if backend == "nccl":
+            # The grant narrows this worker to its cards: the first is
+            # cuda:0.
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=_JOIN_TIMEOUT_S))
+        ones = torch.ones(1, device=dev)
+        dist.all_reduce(ones)
+        seen = int(ones.item())
     return {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
-            "backend": dist.get_backend(), "ranks_seen": int(ones.item())}
+            "backend": dist.get_backend(), "ranks_seen": seen}
 
 
 def _destroy_process_group():

@@ -52,6 +52,7 @@ from ray_tpu_torch.models.llama import (
 from ray_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ray_tpu_torch.parallel.sharding import LogicalAxisRules, shard_pytree
 from ray_tpu_torch.train.trees import tree_leaves, tree_map, tree_unflatten
+from ray_tpu_torch.util import tracing
 
 # Elements per all-reduce bucket when averaging grads over a process
 # group (f32: 128 MB a bucket, a few calls for the flagship's 162M).
@@ -239,18 +240,21 @@ def loss_and_grads(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     with torch.enable_grad():
-        total, metrics = loss_fn(live, batch, cfg, mesh=mesh, rules=rules,
-                                 forward_fn=forward_fn)
-        grads = torch.autograd.grad(total, leaves)
+        with tracing.span("train.forward"):
+            total, metrics = loss_fn(live, batch, cfg, mesh=mesh,
+                                     rules=rules, forward_fn=forward_fn)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(total, leaves)
     metrics = {k: m.detach() for k, m in metrics.items()}
     total = total.detach()
-    if mesh is not None:
-        # Sums still pending over the batch axes are reduced here.
-        grads = [g.redistribute(p.device_mesh, p.placements)
-                 for g, p in zip(grads, leaves)]
-    elif _group_size():
-        grads = _average_grads(grads)
-        total, metrics = _average_metrics(metrics, cfg)
+    with tracing.span("train.grad_sync"):
+        if mesh is not None:
+            # Sums still pending over the batch axes are reduced here.
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
+        elif _group_size():
+            grads = _average_grads(grads)
+            total, metrics = _average_metrics(metrics, cfg)
     return total, metrics, tree_unflatten(params, grads)
 
 
@@ -347,8 +351,10 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, *,
         _, metrics, grads = loss_and_grads(state.params, batch, cfg,
                                            mesh=mesh, rules=rules,
                                            forward_fn=forward_fn)
-        grad_norm = global_norm(tree_leaves(grads))
-        optimizer.update_(grads, state.opt_state, state.params, grad_norm)
+        with tracing.span("train.optimizer"):
+            grad_norm = global_norm(tree_leaves(grads))
+            optimizer.update_(grads, state.opt_state, state.params,
+                              grad_norm)
         state.step += 1
         return state, dict(metrics, grad_norm=grad_norm)
 
