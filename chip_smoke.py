@@ -33,6 +33,25 @@ Phases, each fatal on failure:
    passes, a lost page does not); at the 32-sequence shape window=1 is
    bitwise plain and the stored rows.  Times from the profiler's kernel
    records, the bound from the bytes and flop these inputs need.
+   Then K5 (the optimizer: ``rtt_optim_sumsq``, the global norm, and
+   ``rtt_optim_adamw``, the clipped update) over the trees of the two
+   benchmark configurations (``perfbench/configs``: Mixtral-8x7B at one
+   layer, 1.71 B parameters; Mistral-7B-v0.3 at eight, 2.01 B): the norm
+   within 1e-6 relative of the plain version and bitwise across two
+   calls, one update through ``optim.adamw_`` against the plain
+   version's on each tree (p, m and v within 1e-6 of each leaf's largest
+   magnitude, compared leaf by leaf); the device
+   times of each kernel beside its bound (4 and 28 bytes a parameter),
+   of the plain version, and of ``clip_grad_norm_(foreach=True)`` with
+   ``torch.optim.AdamW(fused=True)`` as a yardstick only (the port
+   never calls them).  On each main path that trains (phases 8, 11-14,
+   15 (a), 16's fixed-batch learner updates, 18, 19's trainer, 21 (a)'s
+   resumed trainer and 22's holder) K5's launches are counted over the
+   path's own run, zeroed just before it, and checked: one
+   ``rtt_optim_adamw`` an update, and one ``rtt_optim_sumsq`` an update
+   except under a mesh, whose DTensor grads take the plain norm.  The
+   kernels line gives them as K5's ``launches`` (phase 8) and
+   ``launches_<path>``.
 6. Main path 1: the flagship Llama forward through
    ``ray_tpu_torch.entry.entry()`` at full width (12 layers, 4 x 512,
    bf16): finite logits, K1 launched 12 times per forward, the loss of the
@@ -768,6 +787,133 @@ def k4_phase(torch, dev):
     return result
 
 
+def k5_trees():
+    """{configuration: [leaf shapes]} of the benchmark's two cells."""
+    from perfbench.arch.decoder_lm import weight_shapes
+
+    out = {}
+    for name in ("mixtral-8x7b-1l", "mistral-7b-v0.3-8l"):
+        with open(f"perfbench/configs/{name}.json") as f:
+            out[name] = [shape for _, shape in weight_shapes(json.load(f))]
+    return out
+
+
+def k5_phase(torch, dev):
+    """K5 over the benchmark cells' trees: the kernels against the plain
+    version, then each pass's device time beside its bound, the plain
+    version's and the library's."""
+    from ray_tpu_torch.ops import optim
+
+    sched = dict(grad_clip=1.0, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                 lr=3e-6, bc1=1 - 0.9 ** 5, bc2=1 - 0.95 ** 5)
+    result = {"name": "K5_optimizer", "route": "cuda",
+              "source": "ray_tpu_torch/ops/csrc/optim.cu",
+              "replaces": None}
+    for cell, shapes in k5_trees().items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        n = sum(math.prod(s) for s in shapes)
+        ps = [torch.randn(s, generator=gen, device=dev).mul_(0.02)
+              for s in shapes]
+        gs = [torch.randn(s, generator=gen, device=dev).mul_(1e-4)
+              for s in shapes]
+        ms = [torch.randn(s, generator=gen, device=dev).mul_(1e-5)
+              for s in shapes]
+        vs = [torch.rand(s, generator=gen, device=dev).mul_(1e-9)
+              for s in shapes]
+        norm = optim.global_norm(gs)
+        again = optim.global_norm(gs)
+        plain = optim._global_norm_plain(gs)
+        torch.cuda.synchronize()
+        rel = abs(norm.item() - plain.item()) / plain.item()
+        log(f"K5 {cell} ({len(shapes)} leaves, {n} parameters): norm "
+            f"{norm.item()} against plain {plain.item()}, relative "
+            f"{rel}; bitwise across two calls: {torch.equal(norm, again)}")
+        check(rel <= 1e-6, f"K5 norm off the plain version's for {cell}")
+        check(torch.equal(norm, again), f"K5 norm not repeatable, {cell}")
+        # One update through the port's wrapper against the plain version,
+        # leaf by leaf from copies of p, m and v, each freed once compared.
+        rp, rm, rv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+        optim.adamw_(ps, gs, ms, vs, norm, **sched)
+        worst = 0.0
+        for i, g in enumerate(gs):
+            optim._adamw_plain_([rp[i]], [g], [rm[i]], [rv[i]], plain,
+                                **sched)
+            for got, want in ((ps[i], rp[i]), (ms[i], rm[i]),
+                              (vs[i], rv[i])):
+                worst = max(worst, float((got - want).abs().max()
+                                         / want.abs().max()))
+            rp[i] = rm[i] = rv[i] = None
+        torch.cuda.synchronize()
+        del rp, rm, rv
+        torch.cuda.empty_cache()
+        log(f"K5 {cell} update through optim.adamw_ against plain: worst "
+            f"leaf max|diff| / max|plain| {worst}")
+        check(worst <= 1e-6, f"K5 update off the plain version's, {cell}")
+
+        def update():
+            optim.adamw_(ps, gs, ms, vs, norm, **sched)
+
+        def plain_step():
+            nrm = optim._global_norm_plain(gs)
+            optim._adamw_plain_(ps, gs, ms, vs, nrm, **sched)
+
+        sq_b, _ = bound(4 * n, 0, BF16_FLOPS)
+        up_b, _ = bound(28 * n, 0, BF16_FLOPS)
+        sq_ms = device_ms(torch, lambda: optim.global_norm(gs), 10,
+                          kernel="rtt_optim_sumsq", floor_ms=sq_b)
+        up_ms = device_ms(torch, update, 10, kernel="rtt_optim_adamw",
+                          floor_ms=up_b)
+        plain_ms = device_ms(torch, plain_step, 3, floor_ms=sq_b + up_b)
+        del ms, vs
+        torch.cuda.empty_cache()
+        params = [torch.nn.Parameter(p) for p in ps]
+        for p, g in zip(params, gs):
+            p.grad = g
+        lib = torch.optim.AdamW(params, lr=3e-6, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+
+        def library():
+            torch.nn.utils.clip_grad_norm_(params, 1.0, foreach=True)
+            lib.step()
+
+        lib_ms = device_ms(torch, library, 3, floor_ms=sq_b + up_b)
+        log(f"K5 {cell} (device time per step): norm {sq_ms} ms (bound "
+            f"{sq_b} ms, {4 * n} B: {sq_b / sq_ms}), update {up_ms} ms "
+            f"(bound {up_b} ms, {28 * n} B: {up_b / up_ms}); both "
+            f"{sq_ms + up_ms} ms against {sq_b + up_b} ms ("
+            f"{(sq_b + up_b) / (sq_ms + up_ms)}, "
+            f"{32 * n / (sq_ms + up_ms) / 1e9} TB/s); plain {plain_ms} ms; "
+            f"clip_grad_norm_(foreach) + AdamW(fused) {lib_ms} ms")
+        sfx = "" if cell.startswith("mixtral") else "_" + cell
+        result.update({k + sfx: v for k, v in (
+            ("params", n), ("update_err", worst), ("sumsq_ms", sq_ms),
+            ("adamw_ms", up_ms), ("ms", sq_ms + up_ms),
+            ("bound_ms", sq_b + up_b), ("plain_ms", plain_ms),
+            ("library_ms", lib_ms))})
+        del params, lib, ps, gs
+        torch.cuda.empty_cache()
+    return result
+
+
+K5 = ("rtt_optim_sumsq", "rtt_optim_adamw")
+K5_PATHS = {}   # {main path: [rtt_optim_sumsq, rtt_optim_adamw] launches}
+
+
+def k5_path(path, launches, updates, norms=None):
+    """Checks and records K5's launches on a main path that made
+    ``updates`` optimizer updates (``launches``: {kernel: launches} of
+    the path's own run, zeroed just before it): one ``rtt_optim_adamw``
+    an update, and one ``rtt_optim_sumsq`` for each of ``norms`` (every
+    update by default; 0 under a mesh, whose DTensor grads take the plain
+    norm)."""
+    got = [launches.get(k, 0) for k in K5]
+    want = [updates if norms is None else norms, updates]
+    log(f"K5 launches on {path}: {got} in {updates} updates (expected "
+        f"{want})")
+    check(got == want, f"K5 launched {got} times on {path}, expected {want}")
+    K5_PATHS[path] = got
+
+
 def _paged_long_inputs(torch, dev, seed, B, h=32, d=128, bs=16, ctx=2048):
     """q, a pool of B * ctx / bs pages with tables permuted over it, and
     every context at ``ctx``, from a seeded generator on the card."""
@@ -927,6 +1073,7 @@ def train_phase(torch, n=8):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n
     launches = [_build.launches[k] for k in keys]  # main path 3 ends
+    k5_path("train_step", _build.launches, n + 1)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     L = cfg.num_layers
@@ -1434,7 +1581,7 @@ def trainer_loop(config):
         restored = {"step": d["step"], "writer_pid": d["pid"],
                     "restore_s": _time.perf_counter() - t0}
         del d
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq") + K5
     names = ("flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel")
     profiled = None if ckpt_at is None else False
     _build.reset_launches()                       # the trainer's path starts
@@ -1548,6 +1695,7 @@ def trainer_phase(torch, smi, loss0_phase8):
     losses = [h["loss"] for h in hist]
     step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
     launches = last["launches"]
+    k5_path("trainer", launches, TRAINER_STEPS)
     prof = last["profiled"]
     got = result.checkpoint.to_dict()
     digests = tree_map(leaf_digest, {k: got[k] for k in ("params",
@@ -1784,6 +1932,7 @@ def moe_phase(torch, dev, n=MOE_STEPS):
     torch.cuda.synchronize()
     dt_step = (time.perf_counter() - t0) / n
     launches = [_build.launches[k] for k in keys]  # main path 7b ends
+    k5_path("moe_step", _build.launches, n + 1)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     log(f"MoE flagship train step (4 x 512 tokens, remat, bf16): "
@@ -1876,6 +2025,7 @@ def mesh_phase(torch, dev, moe, steps=3):
             times.append((time.perf_counter() - t0) * 1e3)
             metrics.append(m)
         launches = [_build.launches[k] for k in keys]  # main path 8b ends
+        k5_path("mesh_step", _build.launches, steps, norms=0)
         m0 = metrics[0]
         rel = abs(float(m0["grad_norm"]) - moe["grad_norm0"]) / \
             moe["grad_norm0"]
@@ -1978,6 +2128,7 @@ def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
                 times.append((time.perf_counter() - t0) * 1e3)
                 metrics.append(m)
             out[name] = [_build.launches[k] for k in keys]
+            k5_path(name, _build.launches, steps, norms=0)
             m0 = metrics[0]
             rel = abs(float(m0["grad_norm"]) - dense["grad_norm0"]) / \
                 dense["grad_norm0"]
@@ -2129,6 +2280,7 @@ def pipeline_actors_phase(torch, dev, dense, pipelined_ms):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = [_build.launches[k] for k in keys]  # main path 10 ends
+    k5_path("pipeline_trainer_step", _build.launches, PIPE_STEPS)
     losses = [m["loss"] for m in metrics]
     rel = abs(metrics[0]["grad_norm"] - dense["grad_norm0"]) / \
         dense["grad_norm0"]
@@ -2272,6 +2424,7 @@ def rllib_phase(torch, dev):
     from ray_tpu_torch.rllib.ppo import ppo_loss
     from ray_tpu_torch.rllib.sample_batch import (
         ACTIONS, ADVANTAGES, LOGP, OBS, VALUE_TARGETS, SampleBatch)
+    from ray_tpu_torch.ops import _build
     from ray_tpu_torch.rllib.vtrace import vtrace
     from ray_tpu_torch.train import adam
 
@@ -2288,6 +2441,7 @@ def rllib_phase(torch, dev):
     learners = [Learner(ActorCriticMLP(4, 2), ppo_loss,
                         optimizer=adam(3e-3, grad_clip=0.5), device=d)
                 for d in (card, "cpu")]
+    _build.reset_launches()                       # the updates start
     metrics = [lr.update(batch) for lr in learners]
     diff = max(float(np.abs(a - b).max()) for a, b in zip(
         *(_np_leaves(lr.get_weights()) for lr in learners)))
@@ -2295,6 +2449,7 @@ def rllib_phase(torch, dev):
     for _ in range(20):
         learners[0].update(batch)
     update_ms = (time.perf_counter() - t0) / 20 * 1e3
+    k5_path("rllib_learner_update", _build.launches, 21)
     log(f"rllib learner update ({n} rows) on {learners[0].device} vs cpu: "
         f"total_loss {metrics[0]['total_loss']} vs "
         f"{metrics[1]['total_loss']}, max |param diff| {diff} (<= 1e-4); "
@@ -2880,7 +3035,7 @@ def data_trainer_loop(config):
                              .manual_seed(0), dev)
     step = make_train_step(cfg, opt)
     shard = config["__datasets__"]["train"][session.get_world_rank()]
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    keys = ("flash_fwd", "flash_dkdv", "flash_dq") + K5
     torch.cuda.synchronize()
     _build.reset_launches()                       # the data path starts
     batches = iter(shard.iter_batches(batch_size=4, batch_format="numpy",
@@ -2975,6 +3130,7 @@ def data_trainer_phase(torch, smi, trainer_step_ms):
     losses = [h["loss"] for h in hist]
     launches = [last["launches"][k] for k in ("flash_fwd", "flash_dkdv",
                                               "flash_dq")]
+    k5_path("data_trainer", last["launches"], steps)
     seen = Counter(d for h in hist for d in h["digests"])
     # The driver's step on the first batch the worker reported, from phase
     # 8's seed-0 state, in this process on the card.
@@ -3392,6 +3548,7 @@ def autoscaled_phase(torch, smi, loss0_phase8, trainer_step_ms):
     losses = [h["loss"] for h in hist]
     launches = [last["launches"][k]
                 for k in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    k5_path("autoscaled_trainer", last["launches"], TRAINER_STEPS)
     step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
     launch = provider.launches[0]
     m = re.search(r"JOB_TASK (\{.*\})", logs)
@@ -3851,6 +4008,7 @@ def recovery_trainer_phase(torch, smi, phase11):
     launches = hist[-1]["launches"]
     got = [launches[k] for k in ("flash_fwd", "flash_dkdv", "flash_dq")]
     n = TRAINER_STEPS - RECOVERY_CKPT_AT
+    k5_path("recovered_trainer", launches, n)
     log(f"phase 21 (a) on {smi}: step {RECOVERY_CKPT_AT}'s checkpoint "
         f"(f32 params and both AdamW moments) {killed['nbytes']} B, its "
         f"report {killed['report_s']} s; worker {killed['pid']} killed "
@@ -4239,6 +4397,7 @@ def failover_phase(torch, smi, phase11):
     n = TRAINER_STEPS - FAILOVER_AFTER
     k = [launches.get(key, 0)
          for key in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    k5_path("failover_holder", launches, n)
     want = phase11["losses"]
     bitwise = (losses[FAILOVER_AFTER:] == want[FAILOVER_AFTER:] and
                norms[FAILOVER_AFTER:] == phase11["grad_norms"][
@@ -4318,6 +4477,8 @@ def main():
     k1 = k1_phase(torch, dev)
     k2, k3 = k23_phase(torch, dev)
     k4 = k4_phase(torch, dev)
+    k5 = k5_phase(torch, dev)
+    torch.cuda.empty_cache()
     k1["launches"], (in_forward, k1["forward_busy_ms"]), fwd_ms = \
         llama_phase(torch)
     k4["launches"] = serve_phase(torch)
@@ -4390,8 +4551,10 @@ def main():
               launches_trainer=trainer["flash_dkdv"])
     k3.update(in_step["flash_dq_kernel"], launches=train["flash_dq"],
               launches_trainer=trainer["flash_dq"])
+    k5["launches"] = K5_PATHS.pop("train_step")
+    k5.update({f"launches_{path}": n for path, n in K5_PATHS.items()})
     log(f"chip_smoke took {time.perf_counter() - t_main} s")
-    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

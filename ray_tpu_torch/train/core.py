@@ -5,8 +5,10 @@ The reference jits loss -> grad -> optax update over its mesh; here the
 step runs eagerly on one device: ``loss_fn`` of the port's Llama, the
 gradients by autograd (through the flash kernels K1-K3 on the card, and
 the per-layer recompute when ``cfg.remat`` is set), then an AdamW that
-repeats optax's ``chain(clip_by_global_norm, adamw(warmup_cosine))``.
-The optimizer is plain PyTorch, as the reference leaves it to XLA.
+repeats optax's ``chain(clip_by_global_norm, adamw(warmup_cosine))``:
+on the card the two kernels of ``ops.optim`` (the global norm, then the
+clipped update of every leaf in one launch), where the reference leaves
+it to XLA; on the CPU their plain versions.
 
     state = init_train_state(cfg, default_optimizer(), generator)
     step = make_train_step(cfg, default_optimizer())
@@ -49,6 +51,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ray_tpu_torch.models.convert import init_params
 from ray_tpu_torch.models.llama import (
     LlamaConfig, forward_pipelined, loss_fn, param_logical_axes)
+from ray_tpu_torch.ops.optim import adamw_, global_norm
 from ray_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ray_tpu_torch.parallel.sharding import LogicalAxisRules, shard_pytree
 from ray_tpu_torch.train.trees import tree_leaves, tree_map, tree_unflatten
@@ -71,14 +74,6 @@ class TrainState:
 def _local(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard (a view: in-place updates reach it)."""
     return x.to_local() if isinstance(x, DTensor) else x
-
-
-def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the L2 norm of all leaves together, f32.  The
-    squares of a sharded leaf are summed over its shards."""
-    sq = [g.float().square().sum() for g in leaves]
-    return torch.sqrt(sum(x.full_tensor() if isinstance(x, DTensor) else x
-                          for x in sq))
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -132,25 +127,15 @@ class AdamW:
         """One step on ``params`` and ``opt_state`` in place;
         ``grad_norm`` is ``global_norm`` of ``grads``.  Sharded leaves
         (grads at their params' placements) update their local shards."""
-        b1, b2, eps = self.b1, self.b2, self.eps
         count = opt_state["count"]
-        lr = self.schedule(count)
-        bc1 = 1.0 - b1 ** (count + 1)
-        bc2 = 1.0 - b2 ** (count + 1)
-        gs = list(map(_local, tree_leaves(grads)))
-        if self.grad_clip is not None:
-            keep = grad_norm < self.grad_clip
-            gs = [torch.where(keep, g, g / grad_norm * self.grad_clip)
-                  for g in gs]
-        for p, g, m, v in zip(map(_local, tree_leaves(params)), gs,
-                              map(_local, tree_leaves(opt_state["mu"])),
-                              map(_local, tree_leaves(opt_state["nu"]))):
-            m.mul_(b1).add_(g, alpha=1.0 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            upd = (m / bc1) / ((v / bc2).sqrt() + eps)
-            if self.weight_decay:
-                upd.add_(p, alpha=self.weight_decay)
-            p.add_(upd, alpha=-lr)
+        adamw_(list(map(_local, tree_leaves(params))),
+               list(map(_local, tree_leaves(grads))),
+               list(map(_local, tree_leaves(opt_state["mu"]))),
+               list(map(_local, tree_leaves(opt_state["nu"]))), grad_norm,
+               grad_clip=self.grad_clip, b1=self.b1, b2=self.b2,
+               eps=self.eps, weight_decay=self.weight_decay,
+               lr=self.schedule(count), bc1=1.0 - self.b1 ** (count + 1),
+               bc2=1.0 - self.b2 ** (count + 1))
         opt_state["count"] = count + 1
 
 

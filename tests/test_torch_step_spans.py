@@ -8,10 +8,12 @@ import time
 import pytest
 import torch
 
+from ray_tpu_torch.models.convert import init_params
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import moe
 from ray_tpu_torch.train import (
     default_optimizer, init_train_state, make_train_step)
+from ray_tpu_torch.train.trees import tree_leaves
 from ray_tpu_torch.util import tracing
 
 TRAIN = ("train.forward", "train.backward", "train.grad_sync",
@@ -146,11 +148,16 @@ def test_moe_spans_per_layer_and_counters_once_a_batch(remat):
 
 
 def test_dense_model_records_no_moe_span_or_counter():
+    cfg = LlamaConfig.tiny(remat=True)
     tracing.enable()
-    _steps(LlamaConfig.tiny(remat=True), 1)
+    _steps(cfg, 1)
     snap = tracing.snapshot()
     assert not [n for n in snap["spans"] if n.startswith("moe.")]
-    assert snap["counters"] == {}
+    # Only the optimizer's counters: every element updated, none through
+    # the kernel on the CPU.
+    n = sum(p.numel() for p in tree_leaves(init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")))
+    assert snap["counters"] == {"optim.elems": n, "optim.fused_elems": 0}
     assert all(snap["spans"][n]["count"] == 1 for n in TRAIN)
 
 
