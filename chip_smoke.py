@@ -52,6 +52,16 @@ Phases, each fatal on failure:
    except under a mesh, whose DTensor grads take the plain norm.  The
    kernels line gives them as K5's ``launches`` (phase 8) and
    ``launches_<path>``.
+   Then K6 (the MoE layer's row movers: ``rtt_moe_gather``, the
+   dispatch and the combine's backward, and ``rtt_moe_combine``, the
+   combine and the dispatch's backward) at the Mixtral cell's shape (T
+   16384, d 4096, 8 experts, top 2, capacity 5120, bf16, 40% of the
+   slots filled): each launch bitwise its plain version and across two
+   calls (the dots within 1e-5 of the largest), its device time beside
+   its byte bound and the plain version's, and the forward pair beside
+   ``index_select`` + ``index_add_`` (a yardstick) and the dense one-hot
+   formulation it replaced.  Phase 12 checks K6's launches on its
+   forward and its step (the kernels line: ``launches_<path>``).
 6. Main path 1: the flagship Llama forward through
    ``ray_tpu_torch.entry.entry()`` at full width (12 layers, 4 x 512,
    bf16): finite logits, K1 launched 12 times per forward, the loss of the
@@ -120,7 +130,9 @@ Phases, each fatal on failure:
    4 x 513 (``default_optimizer(lr=1e-3, warmup=2, decay_steps=100)``):
    K1/K2/K3 launched 24/12/12 times a step, the first loss within 1e-3
    of ``loss_fn``'s under no_grad, a finite falling loss over 9 steps on
-   one batch; ms per step, tokens/s, peak memory and a profiled step.
+   one batch; ms per step, tokens/s, peak memory and a profiled step;
+   K6 launched once of each kernel a layer's forward, three times a
+   layer's step (forward, recompute, backward).
    Its grads against the plain-attention step: each path routing for
    itself, grad_norm within 2e-2 relative (the share of top-2 choices
    that differ and the per-leaf errors logged); on the K1 step's routing
@@ -912,6 +924,122 @@ def k5_path(path, launches, updates, norms=None):
         f"{want})")
     check(got == want, f"K5 launched {got} times on {path}, expected {want}")
     K5_PATHS[path] = got
+
+
+K6 = ("rtt_moe_gather", "rtt_moe_combine")
+K6_PATHS = {}   # {main path: [rtt_moe_gather, rtt_moe_combine] launches}
+
+
+def k6_path(path, launches, want):
+    """Checks and records K6's launches on a MoE path: ``want`` of each
+    kernel (one gather and one combine a layer's forward, the same again
+    in its recompute, and one of each in its backward)."""
+    got = [launches.get(k, 0) for k in K6]
+    log(f"K6 launches on {path}: {got} (expected {[want, want]})")
+    check(got == [want, want], f"K6 launched {got} times on {path}, "
+          f"expected {[want, want]}")
+    K6_PATHS[path] = got
+
+
+def k6_phase(torch, dev):
+    """K6 at the Mixtral cell's shape (T 16384, d 4096, 8 experts, top 2,
+    capacity 5120, bf16), on a routing that leaves experts over and under
+    their capacity: each of the layer's four launches (the dispatch and
+    the combine, and their backwards) against its plain version, then
+    its device time beside its byte bound and the plain version's; the
+    forward pair against ``index_select`` + ``index_add_`` (a yardstick;
+    the port never calls it) and against the dense one-hot formulation
+    it replaced (``moe.dense``, the casts and the two einsums)."""
+    from ray_tpu_torch.ops import moe
+
+    t, d, e, k = 16384, 4096, 8, 2
+    cap = int(1.25 * t * k / e)
+    s = e * cap
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # Uneven expert load: 40% of the slots filled (the Mixtral cell: 34-39%).
+    bias = torch.linspace(6.0, 0.0, e, device=dev)
+    r = moe.route(torch.randn(t, e, generator=gen, device=dev) + bias, k,
+                  cap)
+    bf = torch.bfloat16
+    x, g = (torch.randn(t, d, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    y = torch.randn(s, d, generator=gen, device=dev).to(bf)
+    w = (r.keep * r.gates).to(bf)
+    kept = int(r.keep.sum())
+    rows_in = int(r.keep.any(-1).sum())  # tokens with a kept choice
+    row = 2 * d
+    gather, combine = K6
+    # what: (kernel, the K6 call, its plain version, bytes); each call
+    # returns (rows, the gates' dots or None).
+    runs = {
+        "dispatch": (gather, lambda: moe.gather(x, r.source, k),
+                     lambda: moe._gather_plain(x, r.source, k, None, None),
+                     rows_in * row + s * row + 4 * s),
+        "combine": (combine, lambda: (moe.combine(y, r.slot, w), None),
+                    lambda: (moe._combine_plain(y, r.slot, w), None),
+                    kept * row + t * row + 6 * t * k),
+        "combine_grad": (gather, lambda: moe.gather(g, r.source, k, w=w, b=y),
+                         lambda: moe._gather_plain(g, r.source, k, w, y),
+                         (rows_in + kept + s) * row + 8 * s + 2 * t * k),
+        "dispatch_grad": (combine, lambda: (moe.combine(y, r.slot), None),
+                          lambda: (moe._combine_plain(y, r.slot, None), None),
+                          kept * row + t * row + 4 * t * k),
+    }
+    result = {"name": "K6_moe", "route": "cuda",
+              "source": "ray_tpu_torch/ops/csrc/moe.cu", "replaces": None,
+              "kept": kept, "slots": s}
+    for what, (name, kernel, plain, nbytes) in runs.items():
+        got, want, again = kernel(), plain(), kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]), f"K6 {what} off its plain "
+              f"version")
+        check(all(a is None or torch.equal(a, b)
+                  for a, b in zip(got, again)), f"K6 {what} not repeatable")
+        if got[1] is not None:
+            rel = float(((got[1] - want[1]).abs()).max()
+                        / want[1].abs().max())
+            log(f"K6 {what}: dot max|diff| / max|plain| {rel}")
+            check(rel <= 1e-5, f"K6 {what}'s dots off the plain version")
+        b_ms, _ = bound(nbytes, 0, BF16_FLOPS)
+        ms = device_ms(torch, kernel, 10, kernel=name, floor_ms=b_ms)
+        p_ms = device_ms(torch, plain, 3, floor_ms=b_ms)
+        log(f"K6 {what} ({name}; {kept} of {t * k} assignments kept in "
+            f"{s} slots): {ms} ms (bound {b_ms} ms, {nbytes} B: "
+            f"{b_ms / ms}, {nbytes / ms / 1e9} TB/s); plain {p_ms} ms")
+        result.update({f"{what}_ms": ms, f"{what}_bound_ms": b_ms,
+                       f"{what}_plain_ms": p_ms})
+        del got, want, again
+    keep_tok = torch.nonzero(r.keep)[:, 0]
+    keep_slot = r.slot[r.keep].long()
+    w_kept = w[r.keep][:, None]
+    src_tok = (r.source.long().clamp(min=0) // k)
+
+    def library():
+        x.index_select(0, src_tok)
+        torch.zeros(t, d, dtype=bf, device=dev).index_add_(
+            0, keep_tok, y.index_select(0, keep_slot) * w_kept)
+
+    def dense():
+        disp, comb = moe.dense(r)
+        torch.einsum("tec,td->ecd", disp.to(bf), x)
+        torch.einsum("tec,ecd->td", comb.to(bf), y.view(e, cap, d))
+
+    fwd_b = result["dispatch_bound_ms"] + result["combine_bound_ms"]
+    lib_ms = device_ms(torch, library, 3, floor_ms=fwd_b)
+    dense_ms = device_ms(torch, dense, 2, floor_ms=fwd_b)
+    fwd_ms = result["dispatch_ms"] + result["combine_ms"]
+    four = sum(result[f"{what}_ms"] for what in runs)
+    four_b = sum(result[f"{what}_bound_ms"] for what in runs)
+    log(f"K6 at the Mixtral shape: the four launches {four} ms against "
+        f"{four_b} ms ({four_b / four}); forward pair {fwd_ms} ms, "
+        f"index_select + index_add_ {lib_ms} ms, the dense one-hot "
+        f"dispatch and combine (tables to (T, E, C), casts, two einsums) "
+        f"{dense_ms} ms")
+    result.update({"ms": four, "bound_ms": four_b, "library_ms": lib_ms,
+                   "forward_ms": fwd_ms, "dense_forward_ms": dense_ms})
+    del r, x, g, y
+    torch.cuda.empty_cache()
+    return result
 
 
 def _paged_long_inputs(torch, dev, seed, B, h=32, d=128, bs=16, ctx=2048):
@@ -1756,12 +1884,13 @@ def moe_flagship_cfg():
 
 
 class RoutingProbe:
-    """Wraps ``moe.route_topk`` for the ``with`` block and records, per
-    call, the (token, choice) assignments kept under the capacity and
-    the top-k experts.  With ``replay`` (another probe's record of the
-    same path), each call routes to the experts the other run chose, in
-    the same order, with gate values from this run's probabilities.  It
-    synchronises, so it stays out of timed and counted runs."""
+    """Wraps ``moe.route`` (the routing of both the local and the mesh
+    path) for the ``with`` block and records, per call, the (token,
+    choice) assignments kept under the capacity and the top-k experts.
+    With ``replay`` (another probe's record of the same path), each call
+    routes to the experts the other run chose, in the same order, with
+    gate values from this run's probabilities.  It synchronises, so it
+    stays out of timed and counted runs."""
 
     def __init__(self, torch, replay=None):
         self.torch, self.calls, self.replay = torch, [], replay
@@ -1769,29 +1898,27 @@ class RoutingProbe:
     def __enter__(self):
         from ray_tpu_torch.ops import moe
 
-        self._orig = orig = moe.route_topk
+        self._orig = orig = moe.route
 
         def probe(logits, k, capacity):
             if self.replay is None:
                 out = orig(logits, k, capacity)
-                probs = self.torch.softmax(logits.detach().float(), dim=-1)
-                idx = self.torch.topk(probs, k, dim=-1).indices
             else:
                 idx = self.replay.calls[len(self.calls)][2]
                 probs = self.torch.softmax(logits.float(), dim=-1)
-                out = moe.assign_slots(probs, probs.gather(-1, idx), idx,
-                                       capacity)
-            self.calls.append((float(out[0].sum()), logits.shape[0] * k,
-                               idx))
+                out = moe.assign(probs, probs.gather(-1, idx), idx,
+                                 capacity)
+            self.calls.append((float(out.keep.sum()), logits.shape[0] * k,
+                               out.experts.detach()))
             return out
 
-        moe.route_topk = probe
+        moe.route = probe
         return self
 
     def __exit__(self, *exc):
         from ray_tpu_torch.ops import moe
 
-        moe.route_topk = self._orig
+        moe.route = self._orig
 
     def dropped_share(self):
         return 1.0 - sum(c[0] for c in self.calls) / sum(
@@ -1847,6 +1974,7 @@ def moe_phase(torch, dev, n=MOE_STEPS):
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / reps
     fwd_launches = _build.launches["flash_fwd"]   # main path 7a ends
+    k6_path("moe_forward", _build.launches, L * (reps + 1))
     peak = torch.cuda.max_memory_allocated()
     check(first == L, f"K1 launched {first} times in one MoE forward, "
           f"expected {L}")
@@ -1933,6 +2061,8 @@ def moe_phase(torch, dev, n=MOE_STEPS):
     dt_step = (time.perf_counter() - t0) / n
     launches = [_build.launches[k] for k in keys]  # main path 7b ends
     k5_path("moe_step", _build.launches, n + 1)
+    k6_path("moe_step", _build.launches, (3 if cfg.remat else 2) * L
+            * (n + 1))
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     log(f"MoE flagship train step (4 x 512 tokens, remat, bf16): "
@@ -4479,6 +4609,7 @@ def main():
     k4 = k4_phase(torch, dev)
     k5 = k5_phase(torch, dev)
     torch.cuda.empty_cache()
+    k6 = k6_phase(torch, dev)
     k1["launches"], (in_forward, k1["forward_busy_ms"]), fwd_ms = \
         llama_phase(torch)
     k4["launches"] = serve_phase(torch)
@@ -4554,7 +4685,8 @@ def main():
     k5["launches"] = K5_PATHS.pop("train_step")
     k5.update({f"launches_{path}": n for path, n in K5_PATHS.items()})
     log(f"chip_smoke took {time.perf_counter() - t_main} s")
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    k6.update({f"launches_{path}": n for path, n in K6_PATHS.items()})
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,15 @@ tests pin K4's split plan, ring and lane layout, its folded pre-scale and
 the decoder's staging of tables.  The K4 card tests alone:
 
     python -m pytest -m gpu tests/test_torch_kernels.py -k paged
+
+K6 (``moe_gather``/``moe_combine``) at d = 4096 in bf16 and d = 64 in
+f32, on a token count that is no multiple of a block's 8 rows: the
+kernels bitwise their plain versions (each output element is one product,
+or a sum in the same order), the gates' dots within 1e-4 of the sum of
+their terms' magnitudes (the f32 sums run in another order), empty slots
+zero, two runs bitwise equal; the MoE layer's output and its grads of x,
+the router and the expert weights against the layer on the plain
+versions; the wrapper's refusals and its launch counts.
 """
 
 import ctypes
@@ -35,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.ops import _build, attention
+from ray_tpu_torch.ops import _build, attention, moe
 from ray_tpu_torch.ops.attention import flash_attention_fwd
 from ray_tpu_torch.ops.layers import repeat_kv_heads
 from ray_tpu_torch.ops.paged_attention import (
@@ -758,15 +767,131 @@ def test_read_last_stages_tables_in_one_buffer_on_cpu():
 
 def test_kernel_sources_carry_their_note():
     """Each CUDA source names the Pallas kernel it replaces (the
-    optimizer's: why it replaces none) and its bound; the build keys each
-    library on its source."""
+    optimizer's and the MoE layer's: why they replace none) and its
+    bound; the build keys each library on its source."""
     for src in sorted(_build.CSRC.glob("*.cu")):
         text = src.read_text()
-        if src.stem == "optim":   # K5: the reference leaves it to XLA
+        if src.stem in ("optim", "moe"):   # K5, K6: XLA in the reference
             assert "Replaces no Pallas kernel: " in text, src.name
         else:
             assert "Replaces: ray_tpu/ops/" in text, src.name
         assert "Bound:" in text, src.name
         assert _build._target(src.stem).name.startswith(src.stem + "-")
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
-        "flash_bwd", "flash_fwd", "optim", "paged_decode"}
+        "flash_bwd", "flash_fwd", "moe", "optim", "paged_decode"}
+
+
+# -- K6: the MoE layer's gather and combine ---------------------------------
+
+def _moe_layer(dev, dtype, t, d, e=8, m=64, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    router = torch.randn(d, e, generator=gen, device=dev) * d ** -0.5 * 4
+    w_gate = torch.randn(e, d, m, generator=gen, device=dev) * d ** -0.5
+    w_up = torch.randn(e, d, m, generator=gen, device=dev) * d ** -0.5
+    w_down = torch.randn(e, m, d, generator=gen, device=dev) * m ** -0.5
+    return [x, router, w_gate, w_up, w_down]
+
+
+def _plain_k6(monkeypatch):
+    monkeypatch.setattr(moe, "gather", lambda src, source, k, w=None, b=None:
+                        moe._gather_plain(src, source, k, w, b))
+    monkeypatch.setattr(moe, "combine", lambda src, slot, w=None:
+                        moe._combine_plain(src, slot, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 4096),
+                                     (torch.float32, 64)])
+def test_moe_kernels_match_the_plain_versions(cuda, dtype, d):
+    t, k, e = 1003, 2, 8
+    x = _moe_layer(cuda, dtype, t, d)[0]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    logits = torch.randn(t, e, generator=gen, device=cuda) * 2
+    logits[:, 0] += 1.5              # an expert over its capacity
+    r = moe.route(logits, k, int(1.25 * t * k / e))
+    assert 0 < int((r.source < 0).sum()) and not bool(r.keep.all())
+    w = (r.keep * r.gates).to(dtype)
+    y = torch.randn(r.source.numel(), d, generator=gen,
+                    device=cuda).to(dtype)
+    g = torch.randn(t, d, generator=gen, device=cuda).to(dtype)
+    runs = []
+    for _ in range(2):
+        runs.append((moe.gather(x, r.source, k)[0],
+                     *moe.gather(g, r.source, k, w=w, b=y),
+                     moe.combine(y, r.slot, w), moe.combine(y, r.slot)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)                   # deterministic
+    disp, grad_y, dot, comb, comb1 = runs[0]
+    empty = r.source < 0
+    assert not disp[empty].any() and not grad_y[empty].any()
+    assert not dot[empty].any()
+    assert torch.equal(disp, moe._gather_plain(x, r.source, k, None, None)[0])
+    want_y, want_dot = moe._gather_plain(g, r.source, k, w, y)
+    assert torch.equal(grad_y, want_y)
+    rows = g.index_select(0, r.source.long().clamp(min=0) // k).float()
+    scale = (rows * y.float()).abs().sum(-1)
+    assert bool(((dot - want_dot).abs() <= 1e-4 * scale).all())
+    assert torch.equal(comb, moe._combine_plain(y, r.slot, w))
+    assert torch.equal(comb1, moe._combine_plain(y, r.slot, None))
+
+
+@pytest.mark.gpu
+def test_moe_layer_grads_on_the_kernels_match_the_plain_versions(
+        cuda, monkeypatch):
+    t, k = 1003, 2
+    arrays = _moe_layer(cuda, torch.bfloat16, t, 4096)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            _plain_k6(monkeypatch)
+        _build.reset_launches()
+        tens = [a.clone().requires_grad_() for a in arrays]
+        got = moe.moe_ffn(*tens, num_selected=k, capacity_factor=1.25)
+        loss = (got.out.float() ** 2).sum() * 0.5 + 3.0 * got.aux_loss
+        grads = torch.autograd.grad(loss, tens)
+        torch.cuda.synchronize()
+        runs.append((got.out, grads, dict(_build.launches)))
+    (out, grads, launches), (p_out, p_grads, p_launches) = runs
+    assert launches["rtt_moe_gather"] == 2 and launches["rtt_moe_combine"] \
+        == 2
+    assert not p_launches.get("rtt_moe_gather") and \
+        not p_launches.get("rtt_moe_combine")
+    assert torch.equal(out, p_out)
+    # The expert weights see the same slots and grads bit for bit; the
+    # gates' grads (x's through the router, and the router's) come from
+    # dots summed in another order, each rounded to bf16.
+    for name, a, b in zip(("x", "router", "w_gate", "w_up", "w_down"),
+                          grads, p_grads):
+        if name in ("w_gate", "w_up", "w_down"):
+            assert torch.equal(a, b), name
+        else:
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.gpu
+def test_moe_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(16, 64, device=cuda, dtype=torch.bfloat16)
+    source = torch.arange(32, device=cuda, dtype=torch.int32) % 16
+    slot = torch.zeros(16, 2, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="is on cpu"):
+        moe.gather(x, source.cpu(), 2)
+    with pytest.raises(ValueError, match="is on cpu"):
+        moe.combine(x, slot.cpu())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        moe.gather(x.half(), source, 2)
+    with pytest.raises(TypeError, match="int32"):
+        moe.combine(x, slot.long())
+    with pytest.raises(ValueError, match="not contiguous"):
+        moe.gather(x.t().contiguous().t(), source, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe.combine(x[:, :60].contiguous(), slot)
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe.combine(x, slot, torch.ones(16, 2, device=cuda))
+    _build.reset_launches()
+    moe.gather(x, source, 2)
+    moe.combine(x, slot)
+    assert _build.launches["rtt_moe_gather"] == 1
+    assert _build.launches["rtt_moe_combine"] == 1

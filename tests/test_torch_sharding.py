@@ -333,17 +333,28 @@ def test_make_mesh_world_one(world1):
 
 @pytest.mark.parametrize("num_experts", [0, 4])
 def test_world_one_mesh_forward_is_the_unsharded_forward(world1,
-                                                        num_experts):
+                                                        num_experts,
+                                                        monkeypatch):
     """Sharded over a world of one, the forward and the loss are bitwise
     the unsharded ones (the one-hot embedding picks exact rows), and
-    flash attention runs inside the manual region."""
+    flash attention runs inside the manual region.  The mesh's MoE layer
+    is the dense one-hot formulation, so the unsharded side runs it too
+    (local tensors take it under a ``constrain``); the local path's slot
+    gathers are held to it in ``test_torch_moe.py``."""
     import torch
     from torch.distributed.tensor import DTensor
 
     from ray_tpu_torch.models import (
         LlamaConfig, forward, init_params, loss_fn, param_logical_axes)
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.moe import moe_ffn
     from ray_tpu_torch.parallel import MeshConfig, make_mesh, shard_pytree
 
+    def dense_moe(*args, constrain=None, **kw):
+        return moe_ffn(*args, constrain=constrain or (lambda x, axes: x),
+                       **kw)
+
+    monkeypatch.setattr(llama, "moe_ffn", dense_moe)
     torch.set_num_threads(1)
     cfg = LlamaConfig.tiny(attn_impl="flash", num_experts=num_experts,
                            num_kv_heads=2)

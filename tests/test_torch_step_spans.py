@@ -145,6 +145,33 @@ def test_moe_spans_per_layer_and_counters_once_a_batch(remat):
         * cfg.num_selected
     assert c["moe.slots"] == 2 * cfg.num_layers * cfg.num_experts * capacity
     assert 0 < c["moe.kept"] <= min(c["moe.assignments"], c["moe.slots"])
+    # The CPU takes the plain gathers: nothing went through K6.
+    assert c["moe.fused_assignments"] == 0
+
+
+@pytest.mark.gpu
+def test_fused_assignments_are_every_assignment_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python -m pytest -m gpu "
+                    "tests/test_torch_step_spans.py on the H100)")
+    from ray_tpu_torch.ops import _build
+
+    cfg = LlamaConfig.tiny(num_experts=4, remat=True)
+    opt = default_optimizer()
+    state = init_train_state(cfg, opt, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+    step = make_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 17), device="cuda")
+    _build.reset_launches()
+    tracing.enable()
+    state, _ = step(state, {"tokens": tokens})
+    c = tracing.snapshot()["counters"]
+    assert c["moe.fused_assignments"] == c["moe.assignments"] == \
+        cfg.num_layers * 2 * 16 * cfg.num_selected
+    # A layer's forward and its recompute dispatch and combine, and the
+    # backward runs each one's gather once.
+    assert _build.launches["rtt_moe_gather"] == 3 * cfg.num_layers
+    assert _build.launches["rtt_moe_combine"] == 3 * cfg.num_layers
 
 
 def test_dense_model_records_no_moe_span_or_counter():
