@@ -907,6 +907,7 @@ def k5_phase(torch, dev):
     return result
 
 
+FLASH = ("rtt_flash_fwd_bf16", "rtt_flash_dkdv_bf16", "rtt_flash_dq_bf16")
 K5 = ("rtt_optim_sumsq", "rtt_optim_adamw")
 K5_PATHS = {}   # {main path: [rtt_optim_sumsq, rtt_optim_adamw] launches}
 
@@ -1069,14 +1070,14 @@ def llama_phase(torch):
     with torch.no_grad():
         logits = fn(params, tokens)
         torch.cuda.synchronize()
-        first = _build.launches["flash_fwd"]
+        first = _build.launches["rtt_flash_fwd_bf16"]
         n = 10
         t0 = time.perf_counter()
         for _ in range(n):
             fn(params, tokens)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / n
-    launches = _build.launches["flash_fwd"]       # main path 1 ends
+    launches = _build.launches["rtt_flash_fwd_bf16"]       # main path 1 ends
     peak = torch.cuda.max_memory_allocated()
     check(first == cfg.num_layers, f"K1 launched {first} times in one "
           f"forward, expected {cfg.num_layers}")
@@ -1186,7 +1187,7 @@ def train_phase(torch, n=8):
     with torch.no_grad():
         loss0, _ = loss_fn(state.params, batch, cfg)
     step = make_train_step(cfg, opt)
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    keys = FLASH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()                       # main path 3 starts
@@ -1264,7 +1265,7 @@ def serve_phase(torch):
     for t in threads:
         t.join(300)
     wall = time.perf_counter() - t0
-    launches = _build.launches["paged_decode"]    # main path 2 ends
+    launches = _build.launches["rtt_paged_decode"]    # main path 2 ends
     check(not any(t.is_alive() for t in threads), "requests hung")
     for r, got in zip(reqs, out):
         check(got == dec.reference_decode(r["prompt"], r["tokens"]),
@@ -1299,7 +1300,7 @@ def probed_decoder():
                    "device": self._kv_cache.device.type,
                    "shards": len(self._devices),
                    "cards": torch.cuda.device_count(),
-                   "launches": _build.launches["paged_decode"]}
+                   "launches": _build.launches["rtt_paged_decode"]}
             if reset:
                 _build.reset_launches()
             return out
@@ -1475,7 +1476,7 @@ def disagg_inprocess_phase(torch):
     t0 = time.perf_counter()
     run_threads(client, len(reqs))
     wall = time.perf_counter() - t0
-    launches = _build.launches["paged_decode"]    # main path 5a ends
+    launches = _build.launches["rtt_paged_decode"]    # main path 5a ends
     for r, got in zip(reqs, out):
         check(got == dec.reference_decode(r["prompt"], r["tokens"]),
               f"adopted chain differs from reference_decode for {r}")
@@ -1709,7 +1710,7 @@ def trainer_loop(config):
         restored = {"step": d["step"], "writer_pid": d["pid"],
                     "restore_s": _time.perf_counter() - t0}
         del d
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq") + K5
+    keys = FLASH + K5
     names = ("flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel")
     profiled = None if ckpt_at is None else False
     _build.reset_launches()                       # the trainer's path starts
@@ -1832,7 +1833,7 @@ def trainer_phase(torch, smi, loss0_phase8):
         f"CUDA_VISIBLE_DEVICES={last['cvd']!r}, process group "
         f"{last['backend']} world size {last['world']}; losses {losses} "
         f"(phase 8's first {loss0_phase8}); K1/K2/K3 launches "
-        f"{[launches[k] for k in ('flash_fwd', 'flash_dkdv', 'flash_dq')]} "
+        f"{[launches[k] for k in FLASH]} "
         f"in {TRAINER_STEPS} steps; profile of step {prof and prof['step']}"
         f": {prof}")
     leaves = tree_leaves({k: got[k] for k in ("params", "lm_head_bf16")})
@@ -1849,7 +1850,7 @@ def trainer_phase(torch, smi, loss0_phase8):
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           "the trainer's loss did not fall")
     want = [2 * L * TRAINER_STEPS, L * TRAINER_STEPS, L * TRAINER_STEPS]
-    check([launches[k] for k in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    check([launches[k] for k in FLASH]
           == want, f"K1/K2/K3 launches in the worker {launches}, expected "
           f"{want}")
     check(prof is not None and [prof[n]["count"] for n in (
@@ -1865,9 +1866,7 @@ def trainer_phase(torch, smi, loss0_phase8):
         f"start (fit() to the loop's first line: placement group, spawn, "
         f"torch, NCCL group) {last['loop_start'] - t_fit} s, fit() wall "
         f"{fit_s} s")
-    return {"flash_fwd": launches["flash_fwd"],
-            "flash_dkdv": launches["flash_dkdv"],
-            "flash_dq": launches["flash_dq"], "step_ms": step_ms,
+    return {**{k: launches[k] for k in FLASH}, "step_ms": step_ms,
             "losses": losses, "grad_norms": [h["grad_norm"] for h in hist]}
 
 
@@ -1966,14 +1965,14 @@ def moe_phase(torch, dev, n=MOE_STEPS):
     with torch.no_grad():
         logits, aux = forward(params, tokens, cfg)
         torch.cuda.synchronize()
-        first = _build.launches["flash_fwd"]
+        first = _build.launches["rtt_flash_fwd_bf16"]
         reps = 10
         t0 = time.perf_counter()
         for _ in range(reps):
             forward(params, tokens, cfg)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / reps
-    fwd_launches = _build.launches["flash_fwd"]   # main path 7a ends
+    fwd_launches = _build.launches["rtt_flash_fwd_bf16"]   # main path 7a ends
     k6_path("moe_forward", _build.launches, L * (reps + 1))
     peak = torch.cuda.max_memory_allocated()
     check(first == L, f"K1 launched {first} times in one MoE forward, "
@@ -2045,7 +2044,7 @@ def moe_phase(torch, dev, n=MOE_STEPS):
 
     # The train step at 4 x 513.
     step = make_train_step(cfg, opt)
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    keys = FLASH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()                       # main path 7b starts
@@ -2134,7 +2133,8 @@ def mesh_phase(torch, dev, moe, steps=3):
         with torch.no_grad():
             loss, _ = loss_fn(state.params, batch, cfg, mesh=mesh)
         torch.cuda.synchronize()
-        fwd_launches = _build.launches["flash_fwd"]   # main path 8a ends
+        # main path 8a ends
+        fwd_launches = _build.launches["rtt_flash_fwd_bf16"]
         d = abs(float(loss) - moe["loss_forward"])
         log(f"mesh {mesh} ({backend}, world size 1): MoE loss {float(loss)} "
             f"vs phase 12's {moe['loss_forward']}, |diff| {d} (<= 1e-3), "
@@ -2144,7 +2144,7 @@ def mesh_phase(torch, dev, moe, steps=3):
         check(fwd_launches == L, f"K1 launched {fwd_launches} times under "
               f"the mesh, expected {L}")
         step = make_train_step(cfg, opt, mesh=mesh)
-        keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+        keys = FLASH
         torch.cuda.synchronize()
         _build.reset_launches()                   # main path 8b starts
         times, metrics = [], []
@@ -2202,7 +2202,7 @@ def sp_pp_phase(torch, dev, dense, mesh_step_ms, steps=3):
 
     base = _flagship_cfg()
     L, M = base.num_layers, 4
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    keys = FLASH
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -2385,7 +2385,7 @@ def pipeline_actors_phase(torch, dev, dense, pipelined_ms):
 
     cfg = _flagship_cfg()
     L, M = cfg.num_layers, PIPE_M
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq")
+    keys = FLASH
     opt = default_optimizer(lr=1e-3, warmup=2, decay_steps=100)
     params = init_train_state(cfg, opt, torch.Generator(device=dev)
                               .manual_seed(0), dev).params
@@ -3165,7 +3165,7 @@ def data_trainer_loop(config):
                              .manual_seed(0), dev)
     step = make_train_step(cfg, opt)
     shard = config["__datasets__"]["train"][session.get_world_rank()]
-    keys = ("flash_fwd", "flash_dkdv", "flash_dq") + K5
+    keys = FLASH + K5
     torch.cuda.synchronize()
     _build.reset_launches()                       # the data path starts
     batches = iter(shard.iter_batches(batch_size=4, batch_format="numpy",
@@ -3258,8 +3258,7 @@ def data_trainer_phase(torch, smi, trainer_step_ms):
     check(last.get("end") and len(hist) == steps,
           f"{len(hist)} step reports, expected {steps}")
     losses = [h["loss"] for h in hist]
-    launches = [last["launches"][k] for k in ("flash_fwd", "flash_dkdv",
-                                              "flash_dq")]
+    launches = [last["launches"][k] for k in FLASH]
     k5_path("data_trainer", last["launches"], steps)
     seen = Counter(d for h in hist for d in h["digests"])
     # The driver's step on the first batch the worker reported, from phase
@@ -3348,7 +3347,7 @@ def forward():
         _build.reset_launches()                   # the job's path starts
         logits = fn(params, tokens)
         torch.cuda.synchronize()
-        k1 = _build.launches["flash_fwd"]         # the job's path ends
+        k1 = _build.launches["rtt_flash_fwd_bf16"]  # the job's path ends
     return {"start": start, "pid": os.getpid(),
             "cvd": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "device_name": torch.cuda.get_device_name(0),
@@ -3676,8 +3675,7 @@ def autoscaled_phase(torch, smi, loss0_phase8, trainer_step_ms):
     check(len(hist) == TRAINER_STEPS, f"{len(hist)} reports")
     last = hist[-1]
     losses = [h["loss"] for h in hist]
-    launches = [last["launches"][k]
-                for k in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    launches = [last["launches"][k] for k in FLASH]
     k5_path("autoscaled_trainer", last["launches"], TRAINER_STEPS)
     step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
     launch = provider.launches[0]
@@ -3798,7 +3796,7 @@ def serve_in_process(torch, dec, reqs):
     client(0)
     run_threads(lambda i: client(i + 1), len(reqs) - 1)
     wall = time.perf_counter() - t0
-    launches = _build.launches["paged_decode"]    # the main path ends
+    launches = _build.launches["rtt_paged_decode"]    # the main path ends
     stats = batcher.stats()
     return out, launches, wall, stats, stats["steps"] - steps0
 
@@ -4136,7 +4134,7 @@ def recovery_trainer_phase(torch, smi, phase11):
     norms = [h["grad_norm"] for h in hist]
     want = phase11["losses"][RECOVERY_CKPT_AT:]
     launches = hist[-1]["launches"]
-    got = [launches[k] for k in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    got = [launches[k] for k in FLASH]
     n = TRAINER_STEPS - RECOVERY_CKPT_AT
     k5_path("recovered_trainer", launches, n)
     log(f"phase 21 (a) on {smi}: step {RECOVERY_CKPT_AT}'s checkpoint "
@@ -4525,8 +4523,7 @@ def failover_phase(torch, smi, phase11):
     norms = [s["grad_norm"] for s in steps]
     launches = steps[-1]["launches"]
     n = TRAINER_STEPS - FAILOVER_AFTER
-    k = [launches.get(key, 0)
-         for key in ("flash_fwd", "flash_dkdv", "flash_dq")]
+    k = [launches.get(key, 0) for key in FLASH]
     k5_path("failover_holder", launches, n)
     want = phase11["losses"]
     bitwise = (losses[FAILOVER_AFTER:] == want[FAILOVER_AFTER:] and
@@ -4666,22 +4663,23 @@ def main():
     k1.update(moe["fwd_profile"][0]["flash_fwd_kernel"],
               **moe["step_profile"][0]["flash_fwd_kernel"],
               launches_moe_forward=moe["forward"],
-              launches_moe_step=moe["step"]["flash_fwd"],
+              launches_moe_step=moe["step"]["rtt_flash_fwd_bf16"],
               launches_mesh_forward=mesh["forward"],
-              launches_mesh_step=mesh["flash_fwd"])
+              launches_mesh_step=mesh["rtt_flash_fwd_bf16"])
     k2.update(moe["step_profile"][0]["flash_dkdv_kernel"],
-              launches_moe_step=moe["step"]["flash_dkdv"],
-              launches_mesh_step=mesh["flash_dkdv"])
+              launches_moe_step=moe["step"]["rtt_flash_dkdv_bf16"],
+              launches_mesh_step=mesh["rtt_flash_dkdv_bf16"])
     k3.update(moe["step_profile"][0]["flash_dq_kernel"],
-              launches_moe_step=moe["step"]["flash_dq"],
-              launches_mesh_step=mesh["flash_dq"])
+              launches_moe_step=moe["step"]["rtt_flash_dq_bf16"],
+              launches_mesh_step=mesh["rtt_flash_dq_bf16"])
     k1.update(in_forward["flash_fwd_kernel"],
               **in_step["flash_fwd_kernel"], step_busy_ms=step_busy,
-              launches_trainer=trainer["flash_fwd"])
-    k2.update(in_step["flash_dkdv_kernel"], launches=train["flash_dkdv"],
-              launches_trainer=trainer["flash_dkdv"])
-    k3.update(in_step["flash_dq_kernel"], launches=train["flash_dq"],
-              launches_trainer=trainer["flash_dq"])
+              launches_trainer=trainer["rtt_flash_fwd_bf16"])
+    k2.update(in_step["flash_dkdv_kernel"],
+              launches=train["rtt_flash_dkdv_bf16"],
+              launches_trainer=trainer["rtt_flash_dkdv_bf16"])
+    k3.update(in_step["flash_dq_kernel"], launches=train["rtt_flash_dq_bf16"],
+              launches_trainer=trainer["rtt_flash_dq_bf16"])
     k5["launches"] = K5_PATHS.pop("train_step")
     k5.update({f"launches_{path}": n for path, n in K5_PATHS.items()})
     log(f"chip_smoke took {time.perf_counter() - t_main} s")

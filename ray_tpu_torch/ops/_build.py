@@ -10,15 +10,19 @@ unchanged one is reused.  Nothing is built at import: the first
 launch builds what it needs, and ``build()`` builds every kernel at once,
 one ``nvcc`` per source, all started together.
 
-Every wrapper counts its launches in ``launches`` (one per kernel launch,
-nowhere else), so a run can show that its main path went through the
-kernels.
+Every launch goes through ``launch``, which counts it in ``launches``
+under its C symbol (one per kernel launch, nowhere else), so a run can
+show that its main path went through the kernels; ``check_operand``
+rejects a tensor a kernel does not take before its pointer is passed.
+This module imports torch only inside the functions that need it:
+workers on nodes without a card import none.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> launches since the last reset_launches().
+# C symbol -> launches since the last reset_launches().
 launches: "collections.Counter[str]" = collections.Counter()
 
 _lock = threading.Lock()
@@ -128,3 +132,65 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {err} "
             f"({msg(err).decode()})")
+
+
+def launch(name: str, symbol: str, argtypes, dev, *args,
+           stream: Optional[int] = None) -> None:
+    """Launch C symbol ``symbol`` of kernel ``name`` (see ``function``)
+    with ``args`` and, last, ``stream`` (default: ``dev``'s current
+    stream), with ``dev`` the current device; count it in
+    ``launches[symbol]`` and raise if it failed."""
+    import torch
+
+    fn = function(name, symbol, argtypes)
+    if stream is None:
+        stream = current_stream(dev)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    launches[symbol] += 1
+    check_launch(name, err)
+
+
+def check_operand(name: str, what: str, t, dev, dtype, shape=None, *,
+                  aligned: bool = False) -> int:
+    """Check operand ``what`` of kernel ``name`` before its pointer is
+    passed: on ``dev``, of ``dtype``, of ``shape`` when given, contiguous
+    and, if ``aligned`` (the kernel reads it in 16-byte vectors), starting
+    on 16 bytes.  Raises TypeError for the dtype and ValueError for the
+    rest; returns ``t.data_ptr()``."""
+    if t.device != dev:
+        raise ValueError(f"{name}: {what} must be on {dev}, is on "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, is {t.dtype}")
+    if shape is not None and t.shape != tuple(shape):
+        raise ValueError(f"{name}: {what} must be of shape {tuple(shape)}, "
+                         f"is {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} of shape {tuple(t.shape)} is not "
+                         f"contiguous")
+    ptr = t.data_ptr()
+    if aligned and ptr % 16:
+        raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
+    return ptr
+
+
+def current_stream(dev) -> int:
+    """The handle of CUDA device ``dev``'s current stream: the value of
+    ``torch.cuda.current_stream(dev).cuda_stream``, read without building
+    a ``torch.cuda.Stream`` (microseconds of host time a launch, which
+    the serving path pays once a decode step)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

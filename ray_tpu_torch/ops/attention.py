@@ -48,9 +48,9 @@ _BWD_LIB = "flash_bwd"
 _FWD_BLOCK_N = 128
 _PLAIN_BLOCK_K = 64
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 5 + [_I] * 7 + [_P]
-_DQ_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]
-_DKDV_ARGS = [_P] * 8 + [_I] * 7 + [_P]
+_FWD_ARGS = (_P,) * 5 + (_I,) * 7 + (_P,)
+_DQ_ARGS = (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P)
+_DKDV_ARGS = (_P,) * 8 + (_I,) * 7 + (_P,)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -207,14 +207,10 @@ def _sum_kv_groups(x: torch.Tensor, h_kv: int) -> torch.Tensor:
     return x.reshape(b, s, h_kv, h // h_kv, d).sum(3)
 
 
-def _check_cuda_inputs(q, k, v):
+def _check_cuda_inputs(lib, q, k, v):
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bfloat16, {name} is "
-                            f"{x.dtype}")
-        if x.dim() != 4 or not x.is_contiguous():
+        _build.check_operand(lib, name, x, q.device, torch.bfloat16)
+        if x.dim() != 4:
             raise ValueError(f"{name} must be a contiguous (b, s, h, d) "
                              f"tensor, got shape {tuple(x.shape)}")
     b, sq, h, d = q.shape
@@ -234,36 +230,30 @@ def _flash_fwd_cuda(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream.  k/v keep their own (GQA) head
     count: the kernel maps each q head to its kv head."""
-    _check_cuda_inputs(qs, k, v)
+    _check_cuda_inputs(_KERNEL, qs, k, v)
     b, sq, h, d = qs.shape
     o = torch.empty_like(qs)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
-    fn = _build.function(_KERNEL, "rtt_flash_fwd_bf16", _FWD_ARGS)
-    stream = torch.cuda.current_stream(qs.device).cuda_stream
-    with torch.cuda.device(qs.device):
-        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
-                 int(causal), stream)
-    _build.launches[_KERNEL] += 1
-    _build.check_launch(_KERNEL, err)
+    _build.launch(_KERNEL, "rtt_flash_fwd_bf16", _FWD_ARGS, qs.device,
+                  qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+                  int(causal))
     return o, lse
 
 
 def _check_cuda_grad_inputs(qs, k, v, like_q, rows):
     """``like_q``: name -> tensor that must match q (do, o); ``rows``:
-    name -> f32 (b, h, sq) tensor (lse, delta)."""
-    _check_cuda_inputs(qs, k, v)
-    for name, x in like_q.items():
-        if x.shape != qs.shape or x.dtype != qs.dtype or \
-                x.device != qs.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {qs.dtype} "
-                             f"tensor of q's shape {tuple(qs.shape)}")
+    name -> f32 (b, h, sq) tensor (lse, delta).  A wrong dtype of these is
+    a ValueError, as their other faults are."""
+    _check_cuda_inputs(_BWD_LIB, qs, k, v)
     b, sq, h, _ = qs.shape
-    for name, x in rows.items():
-        if x.shape != (b, h, sq) or x.dtype != torch.float32 or \
-                x.device != qs.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 "
-                             f"(b, h, sq) = {(b, h, sq)} tensor")
+    for names, dtype, shape in ((like_q, qs.dtype, qs.shape),
+                                (rows, torch.float32, (b, h, sq))):
+        for name, x in names.items():
+            if x.dtype != dtype:
+                raise ValueError(f"{name} must be a contiguous {dtype} "
+                                 f"tensor of shape {tuple(shape)}")
+            _build.check_operand(_BWD_LIB, name, x, qs.device, dtype, shape)
 
 
 def _flash_dkdv_cuda(qs, k, v, do, lse, delta, causal
@@ -274,15 +264,11 @@ def _flash_dkdv_cuda(qs, k, v, do, lse, delta, causal
                             {"lse": lse, "delta": delta})
     b, sq, h, d = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function(_BWD_LIB, "rtt_flash_dkdv_bf16", _DKDV_ARGS)
-    stream = torch.cuda.current_stream(qs.device).cuda_stream
-    with torch.cuda.device(qs.device):
-        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
-                 int(causal), stream)
-    _build.launches["flash_dkdv"] += 1
-    _build.check_launch(_BWD_LIB, err)
+    _build.launch(_BWD_LIB, "rtt_flash_dkdv_bf16", _DKDV_ARGS, qs.device,
+                  qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+                  int(causal))
     return dk, dv
 
 
@@ -295,15 +281,11 @@ def _flash_dq_cuda(qs, k, v, o, do, lse, causal, sm_scale: float
     b, sq, h, d = qs.shape
     dq = torch.empty_like(qs)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
-    fn = _build.function(_BWD_LIB, "rtt_flash_dq_bf16", _DQ_ARGS)
-    stream = torch.cuda.current_stream(qs.device).cuda_stream
-    with torch.cuda.device(qs.device):
-        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
-                 int(causal), sm_scale, stream)
-    _build.launches["flash_dq"] += 1
-    _build.check_launch(_BWD_LIB, err)
+    _build.launch(_BWD_LIB, "rtt_flash_dq_bf16", _DQ_ARGS, qs.device,
+                  qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+                  int(causal), sm_scale)
     return dq, delta
 
 

@@ -46,8 +46,8 @@ from ray_tpu_torch.util import tracing
 
 _KERNEL = "moe"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_GATHER_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
-_COMBINE_ARGS = [_P, _P, _I, _P, _P, _I, _I, _I, _P]
+_GATHER_ARGS = (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P)
+_COMBINE_ARGS = (_P, _P, _I, _P, _P, _I, _I, _I, _P)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # csrc/moe.cu's codes
 
 
@@ -135,16 +135,6 @@ def route_topk(router_logits: torch.Tensor, num_selected: int,
     return (*dense(r), r.aux)
 
 
-def assign_slots(probs: torch.Tensor, gate_vals: torch.Tensor,
-                 expert_idx: torch.Tensor, capacity: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``route_topk`` from its choices: router ``probs`` (T, E) f32, and
-    per token its k experts ``expert_idx`` and their ``gate_vals``, best
-    first."""
-    r = assign(probs, gate_vals, expert_idx, capacity)
-    return (*dense(r), r.aux)
-
-
 def _is_dtensor(t: torch.Tensor) -> bool:
     # DTensor's module takes a second to import, and the serving path
     # imports ops without it: no DTensor exists before it is imported.
@@ -219,22 +209,6 @@ def _combine_plain(src, slot, w):
     return acc.to(src.dtype)
 
 
-def _check(what: str, t: torch.Tensor, dev: torch.device, dtype,
-           shape) -> None:
-    if t.device != dev:
-        raise ValueError(f"K6: {what} is on {t.device}, not {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"K6: {what} is {t.dtype}, not {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"K6: {what} has shape {tuple(t.shape)}, not "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"K6: {what} of shape {tuple(t.shape)} is not "
-                         f"contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"K6: {what} does not start on 16 bytes")
-
-
 def _rows(what: str, src: torch.Tensor) -> int:
     """Checks the dtype and width of a row operand; returns its code."""
     if src.dtype not in _DTYPES:
@@ -246,12 +220,14 @@ def _rows(what: str, src: torch.Tensor) -> int:
     return _DTYPES[src.dtype]
 
 
-def _launch(dev: torch.device, symbol: str, argtypes, args) -> None:
-    fn = _build.function(_KERNEL, symbol, argtypes)
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    _build.launches[symbol] += 1
-    _build.check_launch(_KERNEL, err)
+def _ptr(what: str, t: Optional[torch.Tensor], dev: torch.device, dtype,
+         shape) -> Optional[int]:
+    """A K6 operand's address (None for an absent one), after the shared
+    check; every K6 operand is read in 16-byte vectors."""
+    if t is None:
+        return None
+    return _build.check_operand(_KERNEL, what, t, dev, dtype, shape,
+                                aligned=True)
 
 
 def _gather_cuda(src, source, k, w, b):
@@ -259,21 +235,16 @@ def _gather_cuda(src, source, k, w, b):
     code = _rows("src", src)
     n, d = src.shape
     s = source.numel()
-    _check("src", src, dev, src.dtype, (n, d))
-    _check("source", source, dev, torch.int32, (s,))
-    if w is not None:
-        _check("w", w, dev, src.dtype, (n, k))
-    if b is not None:
-        _check("b", b, dev, src.dtype, (s, d))
+    args = (_ptr("src", src, dev, src.dtype, (n, d)),
+            _ptr("source", source, dev, torch.int32, (s,)), k,
+            _ptr("w", w, dev, src.dtype, (n, k)),
+            _ptr("b", b, dev, src.dtype, (s, d)))
     out = torch.empty((s, d), dtype=src.dtype, device=dev)
     dot = None if b is None else torch.empty(s, dtype=torch.float32,
                                              device=dev)
-    _launch(dev, "rtt_moe_gather", _GATHER_ARGS, (
-        src.data_ptr(), source.data_ptr(), k,
-        None if w is None else w.data_ptr(),
-        None if b is None else b.data_ptr(),
-        None if dot is None else dot.data_ptr(), out.data_ptr(), s, d,
-        code))
+    _build.launch(_KERNEL, "rtt_moe_gather", _GATHER_ARGS, dev, *args,
+                  None if dot is None else dot.data_ptr(), out.data_ptr(),
+                  s, d, code)
     return out, dot
 
 
@@ -282,14 +253,12 @@ def _combine_cuda(src, slot, w):
     code = _rows("src", src)
     d = src.shape[1]
     t, k = slot.shape
-    _check("src", src, dev, src.dtype, src.shape)
-    _check("slot", slot, dev, torch.int32, (t, k))
-    if w is not None:
-        _check("w", w, dev, src.dtype, (t, k))
+    args = (_ptr("src", src, dev, src.dtype, src.shape),
+            _ptr("slot", slot, dev, torch.int32, (t, k)), k,
+            _ptr("w", w, dev, src.dtype, (t, k)))
     out = torch.empty((t, d), dtype=src.dtype, device=dev)
-    _launch(dev, "rtt_moe_combine", _COMBINE_ARGS, (
-        src.data_ptr(), slot.data_ptr(), k,
-        None if w is None else w.data_ptr(), out.data_ptr(), t, d, code))
+    _build.launch(_KERNEL, "rtt_moe_combine", _COMBINE_ARGS, dev, *args,
+                  out.data_ptr(), t, d, code)
     return out
 
 
@@ -345,9 +314,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     (expert tensors get ('expert', ...), so 'ep' carries the exchange).
     The router logits are in x's dtype and only their softmax in f32; the
     gates are rounded to x's dtype before they weight the combine, as the
-    reference's combine tensor is.  Counts ``moe.fused_assignments``, the
-    (token, choice) assignments routed through K6 (0 on the CPU and under
-    a mesh), once a routed batch."""
+    reference's combine tensor is."""
     t, d = x.shape
     e = router_w.shape[1]
     capacity = max(1, int(capacity_factor * t * num_selected / e))
@@ -359,8 +326,6 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             aux = r.aux
         else:
             disp, comb, aux = _route(logits, num_selected, capacity)
-    tracing.count("moe.fused_assignments",
-                  t * num_selected if r is not None and x.is_cuda else 0)
     with tracing.span("moe.dispatch"):
         if r is not None:
             expert_in = _Dispatch.apply(x, r.source, r.slot).view(

@@ -30,12 +30,11 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.util import tracing
 
 _KERNEL = "optim"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SUMSQ_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-_ADAMW_ARGS = [_I] + [_P] * 7 + [_F] * 10 + [_I, _P]
+_SUMSQ_ARGS = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_ADAMW_ARGS = (_I,) + (_P,) * 7 + (_F,) * 10 + (_I, _P)
 _WORKSPACES: dict = {}      # (device, stream) -> (f64 partials, counter)
 
 
@@ -126,37 +125,21 @@ def adamw_(ps: List[torch.Tensor], gs: List[torch.Tensor],
     with ``grad_clip=None``), then ``m = b1 m + (1 - b1) g``, ``v = b2 v +
     (1 - b2) g^2``, ``p -= lr ((m / bc1) / (sqrt(v / bc2) + eps) +
     weight_decay p)``.  CUDA leaves take ``rtt_optim_adamw``; CPU leaves
-    the plain version.  Counts ``optim.elems`` and ``optim.fused_elems``
-    (those that went through the kernel) once a call."""
+    the plain version."""
     cuda = {p.is_cuda for p in ps}
     if len(cuda) > 1:
         raise ValueError("AdamW: the params are on CPU and CUDA devices")
-    n = sum(p.numel() for p in ps)
     args = dict(grad_clip=grad_clip, b1=b1, b2=b2, eps=eps,
                 weight_decay=weight_decay, lr=lr, bc1=bc1, bc2=bc2)
     if cuda == {True}:
         _adamw_cuda_(ps, gs, ms, vs, grad_norm, **args)
     else:
         _adamw_plain_(ps, gs, ms, vs, grad_norm, **args)
-    tracing.count("optim.elems", n)
-    tracing.count("optim.fused_elems", n if cuda == {True} else 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(what: str, ts: Sequence[torch.Tensor], dev: torch.device) -> None:
     for i, t in enumerate(ts):
-        if t.device != dev:
-            raise ValueError(f"{what}[{i}] is on {t.device}, not {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the optimizer kernels take float32 leaves; "
-                            f"{what}[{i}] is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"the optimizer kernels take contiguous leaves; "
-                             f"{what}[{i}] of shape {tuple(t.shape)} is not")
+        _build.check_operand(_KERNEL, f"{what}[{i}]", t, dev, torch.float32)
 
 
 def _ptrs(ts: Sequence[torch.Tensor], launch: Launch):
@@ -168,13 +151,6 @@ def _table(ts: Sequence[torch.Tensor], launch: Launch):
     numel = (ctypes.c_longlong * len(launch.leaves))(
         *(ts[i].numel() for i in launch.leaves))
     return numel, (ctypes.c_longlong * len(launch.chunk0))(*launch.chunk0)
-
-
-def _call(dev: torch.device, fn, args) -> int:
-    if dev.index == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(dev):
-        return fn(*args)
 
 
 def _workspace(dev: torch.device, stream: int, n_partials: int):
@@ -209,20 +185,18 @@ def _sumsq_cuda(gs: List[torch.Tensor]) -> torch.Tensor:
     if not launches:
         return torch.zeros((), dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
-    most = _sm_count(dev.index) * lim.blocks_per_sm
+    most = _build.sm_count(dev.index) * lim.blocks_per_sm
     grids = [min(most, lo.chunk0[-1]) for lo in launches]
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     partials, counter = _workspace(dev, stream, sum(grids))
-    fn = _build.function(_KERNEL, "rtt_optim_sumsq", _SUMSQ_ARGS)
     base = 0
     for k, (lo, grid) in enumerate(zip(launches, grids)):
         numel, chunk0 = _table(gs, lo)
-        err = _call(dev, fn, (
-            len(lo.leaves), _ptrs(gs, lo), numel, chunk0,
-            partials.data_ptr(), counter.data_ptr(), out.data_ptr(), base,
-            sum(grids), int(k == len(launches) - 1), grid, stream))
-        _build.launches["rtt_optim_sumsq"] += 1
-        _build.check_launch(_KERNEL, err)
+        _build.launch(
+            _KERNEL, "rtt_optim_sumsq", _SUMSQ_ARGS, dev, len(lo.leaves),
+            _ptrs(gs, lo), numel, chunk0, partials.data_ptr(),
+            counter.data_ptr(), out.data_ptr(), base, sum(grids),
+            int(k == len(launches) - 1), grid, stream=stream)
         base += grid
     return out
 
@@ -247,17 +221,13 @@ def _adamw_cuda_(ps, gs, ms, vs, grad_norm, *, grad_clip, b1, b2, eps,
                                         device=dev)
         norm = grad_norm.data_ptr()
     lim = limits()
-    most = _sm_count(dev.index) * lim.blocks_per_sm
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = _build.function(_KERNEL, "rtt_optim_adamw", _ADAMW_ARGS)
+    most = _build.sm_count(dev.index) * lim.blocks_per_sm
     for lo in plan([p.numel() for p in ps], lim.adamw_chunk,
                    lim.adamw_leaves):
         numel, chunk0 = _table(ps, lo)
-        err = _call(dev, fn, (
-            len(lo.leaves), _ptrs(ps, lo), _ptrs(gs, lo), _ptrs(ms, lo),
-            _ptrs(vs, lo), numel, chunk0, norm,
-            0.0 if grad_clip is None else grad_clip, b1, 1.0 - b1, b2,
-            1.0 - b2, bc1, bc2, eps, weight_decay, lr,
-            min(most, lo.chunk0[-1]), stream))
-        _build.launches["rtt_optim_adamw"] += 1
-        _build.check_launch(_KERNEL, err)
+        _build.launch(
+            _KERNEL, "rtt_optim_adamw", _ADAMW_ARGS, dev, len(lo.leaves),
+            _ptrs(ps, lo), _ptrs(gs, lo), _ptrs(ms, lo), _ptrs(vs, lo),
+            numel, chunk0, norm, 0.0 if grad_clip is None else grad_clip,
+            b1, 1.0 - b1, b2, 1.0 - b2, bc1, bc2, eps, weight_decay, lr,
+            min(most, lo.chunk0[-1]))

@@ -35,7 +35,6 @@ _KERNEL = "paged_decode"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P,) * 9 + (_I,) * 11 + (ctypes.c_float, _I, _P)
-_FN = None                  # the configured C launcher, at first launch
 _BLOCKS_PER_SM = 8          # _split_plan's target of blocks per SM
 _RING_BYTES = 26 * 1024     # a block's ring of page slots
 _SCORE_BYTES = 16 * 1024    # a split's scores, kept between its two passes
@@ -159,17 +158,12 @@ def _ring_stages(bs: int, d: int, elem: int) -> int:
     return max(3, min(8, _RING_BYTES // stage))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=1024)
 def _launch_plan(B: int, h: int, d: int, elem: int, bs: int, max_pages: int,
                  window: int, index: int) -> Tuple[int, int, int, int]:
     """(ring slots, nsplit, pages per split, log2 lanes per row) of a K4
     launch, once per shape: the serving path calls with the same few."""
-    nsplit, pps = _split_plan(B, h, max_pages, bs, window, _sm_count(index))
+    nsplit, pps = _split_plan(B, h, max_pages, bs, window, _build.sm_count(index))
     return _ring_stages(bs, d, elem), nsplit, pps, _lanes_per_row(bs, d)
 
 
@@ -194,13 +188,6 @@ def _workspace(dev: torch.device, stream: int, n_ws: int, n_tickets: int,
     return bufs
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        _FN = _build.function(_KERNEL, "rtt_paged_decode", list(_ARGS))
-    return _FN
-
-
 def _paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, bt: torch.Tensor,
                           cl: torch.Tensor, window: int,
@@ -209,18 +196,16 @@ def _paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     ``q * qscale`` rounded to q's dtype (``qscale`` already rounded to it),
     bitwise ``_prescale``."""
     dev = q.device
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", bt), ("context_lens", cl)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, q on {dev}")
     dtype = _DTYPES.get(q.dtype)
-    if dtype is None or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
+    if dtype is None:
         raise TypeError(f"paged kernel takes float32 or bfloat16 q/k/v of "
-                        f"one dtype, got {q.dtype}/{k_cache.dtype}/"
-                        f"{v_cache.dtype}")
-    if bt.dtype != torch.int32 or cl.dtype != torch.int32:
-        raise TypeError("block_tables and context_lens must be int32")
+                        f"one dtype, got {q.dtype}")
+    check = _build.check_operand
+    q_p = check(_KERNEL, "q", q, dev, q.dtype, aligned=True)
+    k_p = check(_KERNEL, "k_cache", k_cache, dev, q.dtype, aligned=True)
+    v_p = check(_KERNEL, "v_cache", v_cache, dev, q.dtype, aligned=True)
+    bt_p = check(_KERNEL, "block_tables", bt, dev, torch.int32)
+    cl_p = check(_KERNEL, "context_lens", cl, dev, torch.int32)
     B, h, d = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[2:] != (h, d):
@@ -234,19 +219,11 @@ def _paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"paged kernel takes head_dim <= 256 whose rows are "
                          f"a multiple of 16 bytes (of 8 bf16 or 4 f32 "
                          f"values), got {d} x {q.dtype}")
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", bt), ("context_lens", cl)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    q_p, k_p, v_p = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
-    if (q_p | k_p | v_p) % 16:
-        raise ValueError("q, k_cache and v_cache must start on a 16-byte "
-                         "boundary")
     bs, max_pages, window = k_cache.shape[1], bt.shape[1], int(window)
     stages, nsplit, pps, lpr_log2 = _launch_plan(
         B, h, d, q.element_size(), bs, max_pages, window, dev.index)
     o = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     ws = tickets = flags = None
     epoch = 0
     if nsplit > 1:
@@ -257,17 +234,10 @@ def _paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             dev, stream, B * h * nsplit * (d + 3), 2 * B * h, B * h * nsplit))
         _EPOCH[0] = _EPOCH[0] % 0x7FFFFFFE + 1
         epoch = _EPOCH[0]
-    args = (q_p, k_p, v_p, bt.data_ptr(), cl.data_ptr(), o.data_ptr(), ws,
-            tickets, flags, dtype, B, h, d, bs, max_pages, window, nsplit, pps,
-            stages, lpr_log2, qscale, epoch, stream)
-    fn = _launcher()
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
-    _build.launches[_KERNEL] += 1
-    _build.check_launch(_KERNEL, err)
+    _build.launch(_KERNEL, "rtt_paged_decode", _ARGS, dev, q_p, k_p, v_p,
+                  bt_p, cl_p, o.data_ptr(), ws, tickets, flags, dtype, B, h,
+                  d, bs, max_pages, window, nsplit, pps, stages, lpr_log2,
+                  qscale, epoch, stream=stream)
     return o
 
 

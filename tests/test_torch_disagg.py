@@ -235,7 +235,7 @@ def test_handoff_on_the_card_launches_k4_on_imported_pages(cuda):
         assert descr[0] == "inline"
         got = dec._decode({**r, "_import": dec._open_chain(descr)})
         assert got == dec.reference_decode(r["prompt"], r["tokens"])
-    assert _build.launches["paged_decode"] > 0
+    assert _build.launches["rtt_paged_decode"] > 0
     dbg = dec.kv_debug()
     assert dbg["kv_chains_imported"] == len(reqs)
     assert dbg["used"] + dbg["available"] == 128

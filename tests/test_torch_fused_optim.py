@@ -17,7 +17,7 @@ on a tree of 500 leaves
 lr of 0) and at ``adam()``'s settings: p, m and v within 1e-6 of the plain
 version relative to each leaf's largest magnitude, the norm within 1e-6
 relative and bitwise equal across two calls; and the train step's
-launches and counters.
+launches.
 
     python -m pytest -m gpu tests/test_torch_fused_optim.py
 """
@@ -196,9 +196,11 @@ def test_cpu_leaves_take_the_plain_update_bitwise(case):
                     tree_leaves((ref, ref_state["mu"], ref_state["nu"]))):
         assert torch.equal(a, b)
     assert state["count"] == ref_state["count"] == 3
+    # The plain path launched no K5 kernel and counted nothing.
     assert dict(_build.launches) == before
-    n = sum(p.numel() for p in tree_leaves(params))
-    assert counters == {"optim.elems": 3 * n, "optim.fused_elems": 0}
+    assert not _build.launches["rtt_optim_sumsq"]
+    assert not _build.launches["rtt_optim_adamw"]
+    assert counters == {}
 
 
 @pytest.mark.parametrize("where", ["below", "at", "above"])
@@ -377,6 +379,5 @@ def test_train_step_launches_each_kernel_once_a_step(cuda):
         tracing.reset()
     assert _build.launches["rtt_optim_sumsq"] == 2
     assert _build.launches["rtt_optim_adamw"] == 2
-    n = sum(p.numel() for p in tree_leaves(state.params))
-    assert counters["optim.elems"] == counters["optim.fused_elems"] == 2 * n
+    assert counters == {}   # the launch counts show the kernels' path
     assert torch.isfinite(metrics["grad_norm"])

@@ -82,9 +82,9 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, h_kv, causal):
     q = _bf16(gen, (b, s, h, 128), cuda)
     k = _bf16(gen, (b, s, h_kv, 128), cuda)
     v = _bf16(gen, (b, s, h_kv, 128), cuda)
-    before = _build.launches["flash_fwd"]
+    before = _build.launches["rtt_flash_fwd_bf16"]
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
-    assert _build.launches["flash_fwd"] == before + 1
+    assert _build.launches["rtt_flash_fwd_bf16"] == before + 1
     k2, v2 = repeat_kv_heads(q, k, v)
     o_p, lse_p = attention._flash_fwd_plain(
         attention._prescale(q, 128 ** -0.5), k2, v2, causal)
@@ -135,7 +135,7 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     before = dict(_build.launches)
     flash_attention_fwd(q, q, q)[0].sum().backward()
     assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad).all())
-    for name in ("flash_dkdv", "flash_dq"):   # the backward is K2 + K3
+    for name in ("rtt_flash_dkdv_bf16", "rtt_flash_dq_bf16"):  # K2 + K3
         assert _build.launches[name] == before.get(name, 0) + 1
 
 
@@ -163,8 +163,8 @@ def _check_flash_bwd(dev, b, sq, sk, h, h_kv, d, causal, seed):
     dq, delta = attention._flash_dq_cuda(qs, k, v, o, do, lse, causal,
                                          d ** -0.5)
     dk, dv = attention._flash_dkdv_cuda(qs, k, v, do, lse, delta, causal)
-    assert _build.launches["flash_dkdv"] == before.get("flash_dkdv", 0) + 1
-    assert _build.launches["flash_dq"] == before.get("flash_dq", 0) + 1
+    for name in ("rtt_flash_dkdv_bf16", "rtt_flash_dq_bf16"):
+        assert _build.launches[name] == before.get(name, 0) + 1
     delta_p = attention._delta(o, do)
     k2, v2 = repeat_kv_heads(qs, k, v)
     dk_p, dv_p = (attention._sum_kv_groups(x, h_kv) for x in
@@ -296,9 +296,9 @@ def _assert_paged_close(out, plain):
 @pytest.mark.gpu
 def test_paged_kernel_serving_shape_is_exact(cuda):
     q, kc, vc, bt, cl = _paged_case(0, 8, 1, 32, 8, 40, torch.float32, cuda)
-    before = _build.launches["paged_decode"]
+    before = _build.launches["rtt_paged_decode"]
     out = paged_attention(q, kc, vc, bt, cl, window=1)
-    assert _build.launches["paged_decode"] == before + 1
+    assert _build.launches["rtt_paged_decode"] == before + 1
     plain = _paged_attention_plain(attention._prescale(q, 32 ** -0.5), kc,
                                    vc, bt, cl, 1)
     assert torch.equal(out, plain)
@@ -339,16 +339,16 @@ def test_paged_kernel_split_edges(cuda):
     split or not."""
     B, h, d, bs, width = 6, 16, 128, 16, 40
     nsplit, pps = paged_mod._split_plan(
-        B, h, width, bs, 0, paged_mod._sm_count(cuda.index))
+        B, h, width, bs, 0, _build.sm_count(cuda.index))
     assert nsplit > 1 and pps > 1
     span = pps * bs
     q, kc, vc, bt, cl = _paged_case(
         5, B, h, d, bs, width * bs, torch.bfloat16, cuda,
         cl=[1, bs, bs + 1, span, span + 1, width * bs])
     for window in (0, 1, span, span + 1):
-        before = _build.launches["paged_decode"]
+        before = _build.launches["rtt_paged_decode"]
         out = paged_attention(q, kc, vc, bt, cl, window=window)
-        assert _build.launches["paged_decode"] == before + 1
+        assert _build.launches["rtt_paged_decode"] == before + 1
         _assert_paged_close(out, _paged_plain(q, kc, vc, bt, cl, window))
 
 
@@ -456,7 +456,7 @@ def test_paged_decoder_chains_on_card(cuda):
     reqs = [{"prompt": list(range(20)) + [i], "tokens": 3 + i % 10}
             for i in range(16)]
     out = [None] * len(reqs)
-    before = _build.launches["paged_decode"]
+    before = _build.launches["rtt_paged_decode"]
 
     def client(i):
         out[i] = b.submit(reqs[i])
@@ -470,7 +470,7 @@ def test_paged_decoder_chains_on_card(cuda):
     assert not any(t.is_alive() for t in threads)
     for r, got in zip(reqs, out):
         assert got == dec.reference_decode(r["prompt"], r["tokens"])
-    assert _build.launches["paged_decode"] > before
+    assert _build.launches["rtt_paged_decode"] > before
     assert b.stats()["prefix_hits"] > 0
 
 
@@ -595,6 +595,84 @@ def test_build_function_configures_each_symbol_once(monkeypatch):
     assert other is not fn and other.argtypes == [ctypes.c_int]
     assert fn.argtypes == args
     assert looked_up == ["rtt_a", "rtt_b", "rtt_a"]
+
+
+@pytest.mark.gpu
+def test_current_stream_is_torchs(cuda):
+    """The launches' stream is the one PyTorch runs on, under a stream
+    context too."""
+    assert _build.current_stream(cuda) == \
+        torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert _build.current_stream(cuda) == side.cuda_stream
+
+
+@pytest.mark.parametrize("fault,t,exc,match", [
+    ("device", torch.zeros(4, 4), ValueError, "is on cpu"),
+    ("dtype", torch.zeros(4, 4, dtype=torch.int64), TypeError, "int32"),
+    ("shape", torch.zeros(4, 2, dtype=torch.int32), ValueError,
+     "of shape"),
+    ("contiguity", torch.zeros(4, 4, dtype=torch.int32).t(), ValueError,
+     "not contiguous"),
+    ("alignment", torch.zeros(17, dtype=torch.int32)[1:].view(4, 4),
+     ValueError, "16-byte"),
+])
+def test_check_operand_refuses_each_fault(fault, t, exc, match):
+    """The shared operand check raises the type each wrapper raised for
+    the fault before it: TypeError for the dtype, ValueError for the
+    rest; a tensor it takes comes back as its address."""
+    dev = torch.device("cuda", 0) if fault == "device" else t.device
+    with pytest.raises(exc, match=match):
+        _build.check_operand("k", "x", t, dev, torch.int32, (4, 4),
+                             aligned=True)
+    ok = torch.zeros(4, 4, dtype=torch.int32)
+    assert _build.check_operand("k", "x", ok, ok.device, torch.int32,
+                                (4, 4), aligned=True) == ok.data_ptr()
+    if fault == "alignment":    # only a kernel of 16-byte reads asks
+        assert _build.check_operand("k", "x", t, dev, torch.int32) \
+            == t.data_ptr()
+
+
+@pytest.mark.parametrize("current", [True, False])
+def test_launch_counts_its_symbol_on_the_device_stream(monkeypatch,
+                                                       current):
+    """launch() passes the arguments and, last, the device's current
+    stream; enters the device's context only when it is not current;
+    counts the launch under its C symbol; raises on an error code."""
+    calls, entered = [], []
+
+    def fn(*args):
+        calls.append(args)
+        return len(calls) - 1           # the second call fails
+
+    class Lib:
+        rtt_error_string = staticmethod(lambda err: b"bad launch")
+
+    class Device:
+        def __init__(self, dev):
+            entered.append(dev)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(_build, "function", lambda *key: fn)
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    monkeypatch.setattr(_build, "current_stream", lambda dev: 7)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: 0 if current else 1)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(_build, "launches", _build.collections.Counter())
+    dev = torch.device("cuda", 0)
+    _build.launch("lib", "rtt_sym", (), dev, 1, 2)
+    assert calls == [(1, 2, 7)] and _build.launches == {"rtt_sym": 1}
+    assert entered == ([] if current else [dev])
+    with pytest.raises(RuntimeError, match="lib kernel launch failed"):
+        _build.launch("lib", "rtt_sym", (), dev, 3, stream=9)
+    assert calls[1] == (3, 9) and _build.launches == {"rtt_sym": 2}
 
 
 def test_prescale_constant_is_cached():

@@ -112,7 +112,7 @@ def test_dense_chains_bitwise_the_8_device_reference(ref, n):
 @pytest.mark.parametrize("n", SHARDS)
 def test_paged_chains_bitwise_the_8_device_reference(ref, n, k):
     dense, weights, _, want = ref
-    before = _build.launches["paged_decode"]
+    before = _build.launches["rtt_paged_decode"]
     dec = MeshShardedDecoder(weights=weights, device=["cpu"] * n,
                              speculative_k=k, **PAGED)
     got, s = _paged_chains(dec, PAGED_REQS)
@@ -124,7 +124,7 @@ def test_paged_chains_bitwise_the_8_device_reference(ref, n, k):
     if k:
         assert s["spec_proposed"] >= s["spec_accepted"] > 0
     # CPU tensors take K4's plain version.
-    assert _build.launches["paged_decode"] == before
+    assert _build.launches["rtt_paged_decode"] == before
 
 
 def _tied_weights():
